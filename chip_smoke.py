@@ -2,13 +2,24 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once at SciFact scale (5,183 docs, doclens
-64-300, ~1.5M tokens, d 128, nbits 4, 16,384 centroids): a corpus made on
-the card from a seed, `create_index_from_device`, `DeviceIndex.load`,
-`with_token_grid(dtype="bf16")` and `search_batch` over 320 queries, with
-recall@10 against the f32 exhaustive oracle. Before that it builds the CUDA
-MaxSim kernel from the sources in this checkout and holds it against its
-plain PyTorch version on the card.
+Builds both CUDA MaxSim kernels (bf16 and int8) from the sources in this
+checkout, one nvcc each, at once, and holds each against its plain PyTorch
+version on the card. Then drives the port's paths:
+  1. SciFact scale (5,183 docs, doclens 64-300, ~1.5M tokens, d 128,
+     nbits 4, 16,384 centroids): a corpus made on the card from a seed,
+     `create_index_from_device`, `DeviceIndex.load`,
+     `with_token_grid(dtype="bf16")` and `search_batch` over 320 queries,
+     with recall@10 against the f32 exhaustive oracle;
+  2. the same index pinned as an int8 grid (`with_token_grid("int8")`);
+  3. grid-only int8 serving with the exact refinement rerank at the scale
+     of scripts/profile_megascale.py (473,000 docs, doclens 100-220,
+     ~75.7M tokens, nbits 2, 131,072 centroids): chunks made on the card,
+     `create_index_streamed`, `load_grid_only(dtype="int8")` (4 doclen
+     buckets, refinement on the device), pipelined `search_batch_async`
+     batches of 64 queries, recall@10 refined and unrefined against the f32
+     exhaustive scan of `DeviceIndex.load`.
+Each path's kernel launch counts are set to 0 just before it and read just
+after.
 
 Prints one line per phase, then a {"kernels": [...]} JSON line, and as its
 last line {"ok": true, "device": {...}}. Exits non-zero, with no result,
@@ -17,6 +28,7 @@ when CUDA is unavailable or any phase fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -31,16 +43,28 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
-# H100 SXM published peaks (dense bf16 tensor cores, HBM3).
+# H100 SXM published peaks (dense bf16 and int8 tensor cores, HBM3).
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
-# Kernel vs plain version: both sum exact bf16 products in f32, in other
-# orders; allowed |difference| is this fraction of the largest |score|.
+# Kernel vs plain version: both sum exact products in f32, in other orders;
+# allowed |difference| is this fraction of the largest |score|.
 KERNEL_RTOL = 1e-4
 MIN_RECALL = 0.99
+MIN_RECALL_INT8 = 0.95  # unrefined int8 grids lose a little recall by design
 NUM_QUERIES = 320
 TIMED_PASSES = 10
+
+# Grid-only main path: the corpus of scripts/profile_megascale.py.
+MEGA_DOCS = 473_000
+MEGA_LEN = (100, 220)
+MEGA_TOPICS = 16384
+MEGA_CHUNK_DOCS = 16_000
+MEGA_SAMPLE_TOKENS = 1 << 21
+MEGA_BATCH = 64
+MEGA_IN_FLIGHT = 6
+MEGA_PASSES = 5
 
 
 def make_doclens(num_docs=5183, avg_len=290, seed=0):
@@ -103,6 +127,21 @@ def maxsim_bound(qflat, grid, doclens, tq):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), dense_ms
 
 
+def maxsim_bound_int8(qi8, grids, scales, q_n):
+    """Least time (ms) of one int8 MaxSim pass over `grids` (one call per
+    grid): the int8 products of the docs' valid tokens (positive scale) at
+    the int8 peak vs each input read once and each output written once at
+    the HBM rate. Returns (ms, bound_by)."""
+    qf, d = qi8.shape
+    tokens = sum(int((s.float() > 0).sum()) for s in scales)
+    ops = 2.0 * qf * d * tokens
+    nbytes = len(grids) * qf * (d + 4) + sum(
+        g.numel() + s.numel() * 2 + q_n * g.shape[0] * 4 for g, s in zip(grids, scales)
+    )
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def check_kernel(kernel, plain, args, label):
     """Kernel vs plain version on the same inputs; returns max |diff|."""
     got = kernel(*args)
@@ -156,42 +195,117 @@ def slice_inputs(device):
     return to(q, torch.bfloat16), to(grid, torch.bfloat16), to(lens, torch.int32), 32
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
-        return 1
+def int8_edge_inputs(device):
+    """Td 64 with ragged valid lengths, docs with no valid token,
+    zero-scale (padded) query tokens, a doc whose dots with query 0 are all
+    negative, and a real all-zero token (scale 1.0, valid)."""
+    rng = np.random.default_rng(6)
+    q_n, tq, nd, td, d = 5, 32, 300, 64, 128
+    q = rng.integers(-127, 128, (q_n, tq, d)).astype(np.int8)
+    qs = rng.uniform(0.002, 0.01, (q_n, tq)).astype(np.float32)
+    q[:, 27:] = 0
+    qs[:, 27:] = 0.0
+    q[0] = np.abs(q[0].astype(np.int16)).clip(0, 127).astype(np.int8)
+    grid = rng.integers(-127, 128, (nd, td, d)).astype(np.int8)
+    sc = rng.uniform(0.002, 0.01, (nd, td)).astype(np.float32)
+    lens = rng.integers(1, td + 1, nd)
+    lens[[2, 40, nd - 1]] = 0
+    lens[1] = 5
+    grid[1] = -np.abs(grid[1].astype(np.int16)).clip(0, 127).astype(np.int8)
+    for i in range(nd):
+        grid[i, lens[i]:] = 0
+        sc[i, lens[i]:] = 0.0
+    grid[5, 0] = 0
+    sc[5, 0] = 1.0
+    return (torch.from_numpy(q.reshape(q_n * tq, d)).to(device),
+            torch.from_numpy(qs.reshape(-1)).to(device),
+            torch.from_numpy(grid).to(device),
+            torch.from_numpy(sc).to(device, torch.bfloat16), tq)
+
+
+def int8_slice_inputs(device):
+    """A main-path-shaped slice: 64 queries x 32 tokens against 512 rows x
+    Td 224 x 128 of quantized unit tokens with doclens 100-220."""
+    from nextplaid_tpu_torch.index.container import quantize_tokens_int8
+    from nextplaid_tpu_torch.index.exact import quantize_queries_int8
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    q = torch.randn(64 * 32, 128, generator=gen, device=device)
+    qi8, qs = quantize_queries_int8(q / q.norm(dim=1, keepdim=True))
+    emb = torch.randn(512, 224, 128, generator=gen, device=device)
+    lens = torch.randint(100, 221, (512,), generator=gen, device=device)
+    valid = torch.arange(224, device=device)[None, :] < lens[:, None]
+    emb = torch.where(valid[:, :, None], emb / emb.norm(dim=2, keepdim=True), 0.0)
+    grid, scales = quantize_tokens_int8(emb, valid)
+    return qi8, qs, grid, scales, 32
+
+
+def mega_corpus(device, n_docs=MEGA_DOCS, dim=128, seed=0):
+    """scripts/profile_megascale.py's corpus: numpy topics (seed 0) and
+    doclens (seed 1, uniform 100-220), tokens unit(topic + 0.08 noise) made
+    on the card chunk by chunk. Returns (chunk iterator, training sample,
+    doclens, topics)."""
+    from nextplaid_tpu_torch.index.build import DeviceChunk
+
+    rng = np.random.default_rng(seed)
+    topics = rng.standard_normal((MEGA_TOPICS, dim)).astype(np.float32)
+    topics /= np.linalg.norm(topics, axis=1, keepdims=True)
+    lens = np.random.default_rng(seed + 1).integers(
+        MEGA_LEN[0], MEGA_LEN[1] + 1, size=n_docs).astype(np.int32)
+    topics_dev = torch.from_numpy(topics).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+
+    def tokens(n):
+        ids = torch.randint(0, MEGA_TOPICS, (n,), generator=gen, device=device)
+        v = topics_dev[ids] + 0.08 * torch.randn(n, dim, generator=gen, device=device)
+        return v / v.norm(dim=1, keepdim=True)
+
+    sample = tokens(MEGA_SAMPLE_TOKENS)
+
+    def chunks():
+        for lo in range(0, n_docs, MEGA_CHUNK_DOCS):
+            dl = lens[lo : lo + MEGA_CHUNK_DOCS]
+            yield DeviceChunk(tokens=tokens(int(dl.sum())), doclens=dl)
+
+    return chunks(), sample, lens, topics
+
+
+def mega_queries(topics, num=128, tokens=32, dim=128, seed=9):
+    """scripts/profile_megascale.py's make_queries."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(num):
+        t = topics[rng.integers(0, len(topics), size=tokens)]
+        q = (t + 0.08 * rng.standard_normal((tokens, dim))).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        out.append(q)
+    return out
+
+
+def recall_at_10(results, oracle):
+    return float(np.mean([
+        len(set(r.passage_ids) & set(o.passage_ids)) / max(len(o.passage_ids), 1)
+        for r, o in zip(results, oracle)
+    ]))
+
+
+def check_results(results, n, k=10):
+    if len(results) != n or any(
+        len(r.passage_ids) != k or not np.all(np.isfinite(r.scores))
+        or np.any(np.diff(r.scores) > 0) for r in results
+    ):
+        raise AssertionError(f"search results are not {k} finite, sorted hits per query")
+
+
+def scifact_phases(device, mk):
+    """PR 1's main path (bf16 pin) and the int8 pin of the same index.
+    Returns the two kernels' entries of the kernels line."""
     from nextplaid_tpu_torch.index import (
         DeviceIndex, IndexConfig, SearchParameters, create_index_from_device, search_batch,
     )
+    from nextplaid_tpu_torch.index.exact import quantize_queries_int8
     from nextplaid_tpu_torch.index.search import _pad_queries
-    from nextplaid_tpu_torch.ops import maxsim_kernel as mk
 
-    device = torch.device("cuda")
-    # Phase 1: device.
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    name = torch.cuda.get_device_name(0)
-    print(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.device_count()} visible", flush=True)
-
-    # Phase 2: build the kernel library from the sources in this checkout.
-    t0 = time.perf_counter()
-    lib_path = mk.build_library()
-    mk._library()
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
-             if "Used" in ln]
-    print(f"build: {lib_path.name} in {build_s:.2f} s; {'; '.join(ptxas)}", flush=True)
-
-    # Phase 3: kernel vs plain version on the card.
-    for label, args in (("edge cases", edge_case_inputs(device)),
-                        ("main-path slice 64q x 512 docs", slice_inputs(device))):
-        check_kernel(mk.maxsim_grid_scores, mk.maxsim_grid_scores_reference, args, label)
-
-    # Phase 4: the main path end to end at SciFact scale.
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     path = os.path.join(WORK_DIR, "scifact_scale")
     try:
@@ -221,72 +335,279 @@ def main() -> int:
               f"allocated {torch.cuda.memory_allocated() / 2**20:.1f} MiB", flush=True)
 
         queries = make_queries(topics)
-        params = SearchParameters(top_k=10, stage1_precision="default")
-        search_batch(index, queries, params)  # warm-up
-        mk.maxsim_grid_scores.launches = 0
-        pass_s, results = [], None
-        for _ in range(TIMED_PASSES):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            results = search_batch(index, queries, params)
-            pass_s.append(time.perf_counter() - t0)
-        launches = mk.maxsim_grid_scores.launches
-        if launches < TIMED_PASSES:
-            raise AssertionError(
-                f"the main path launched the kernel {launches} times in {TIMED_PASSES} passes"
-            )
-        if len(results) != NUM_QUERIES or any(
-            len(r.passage_ids) != 10 or not np.all(np.isfinite(r.scores))
-            or np.any(np.diff(r.scores) > 0) for r in results
-        ):
-            raise AssertionError("search results are not 10 finite, sorted hits per query")
-        qps = [NUM_QUERIES / s for s in pass_s]
-
         n_eval = 64
         oracle = search_batch(unpinned, queries[:n_eval],
                               SearchParameters(top_k=10, mode="exact", stage1_precision="highest"))
-        recall = float(np.mean([
-            len(set(r.passage_ids) & set(o.passage_ids)) / max(len(o.passage_ids), 1)
-            for r, o in zip(results[:n_eval], oracle)
-        ]))
-
-        # The kernel alone at the main path's shapes, beside its plain version.
+        params = SearchParameters(top_k=10, stage1_precision="default")
         q_arr, _ = _pad_queries(queries, index.dim)
         tq = q_arr.shape[1]
-        qflat = torch.from_numpy(q_arr.reshape(-1, index.dim)).to(device, torch.bfloat16)
-        doclens_g = torch.zeros(grid.shape[0], dtype=torch.int32, device=device)
-        doclens_g[: index.num_docs_padded] = index.doclens
-        args = (qflat, grid, doclens_g, tq)
-        max_err = check_kernel(mk.maxsim_grid_scores, mk.maxsim_grid_scores_reference, args,
-                               f"main path {NUM_QUERIES}q x {grid.shape[0]} rows")
-        kernel_ms = time_ms(lambda: mk.maxsim_grid_scores(*args), reps=20)
-        plain_ms = time_ms(lambda: mk.maxsim_grid_scores_reference(*args), reps=3)
-        bound_ms, bound_by, dense_ms = maxsim_bound(qflat, grid, doclens_g, tq)
-        print(f"search: {NUM_QUERIES} queries x {TIMED_PASSES} passes, "
-              f"p50 {statistics.median(qps):.1f} QPS (min {min(qps):.1f}, max {max(qps):.1f}); "
-              f"kernel {kernel_ms:.3f} ms/pass, bound {bound_ms:.3f} ms "
-              f"({bound_by}; {100 * bound_ms / kernel_ms:.1f}% of it), dense-grid "
-              f"bound {dense_ms:.3f} ms; plain version {plain_ms:.3f} ms; recall@10 vs f32 oracle "
-              f"{recall:.4f} on {n_eval} queries; kernel launches {launches}", flush=True)
-        if recall < MIN_RECALL:
-            raise AssertionError(f"recall@10 {recall} < {MIN_RECALL}")
+        q_dev = torch.from_numpy(q_arr.reshape(-1, index.dim)).to(device)
+        entries = []
+        for label, pinned in (("bf16", index), ("int8", None)):
+            if pinned is None:
+                del index, grid
+                gc.collect()
+                t0 = time.perf_counter()
+                pinned = unpinned.with_token_grid(dtype="int8")
+                torch.cuda.synchronize()
+                pin_s = time.perf_counter() - t0
+                if pinned.token_scales is None:
+                    raise AssertionError("the int8 token grid was not pinned")
+                g8 = pinned.token_grid
+                print(f"int8 pin: {pin_s:.2f} s; grid {tuple(g8.shape)} int8 + scales = "
+                      f"{(g8.numel() + 2 * pinned.token_scales.numel()) / 2**20:.1f} MiB",
+                      flush=True)
+            kernel = mk.maxsim_grid_scores if label == "bf16" else mk.maxsim_grid_scores_int8i
+            search_batch(pinned, queries, params)  # warm-up
+            kernel.launches = 0
+            pass_s, results = [], None
+            for _ in range(TIMED_PASSES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results = search_batch(pinned, queries, params)
+                pass_s.append(time.perf_counter() - t0)
+            launches = kernel.launches
+            if launches < TIMED_PASSES:
+                raise AssertionError(
+                    f"the {label} path launched its kernel {launches} times in "
+                    f"{TIMED_PASSES} passes"
+                )
+            check_results(results, NUM_QUERIES)
+            qps = [NUM_QUERIES / s for s in pass_s]
+            recall = recall_at_10(results[:n_eval], oracle)
+
+            # The kernel alone at the path's shapes, beside its plain version.
+            if label == "bf16":
+                plain = mk.maxsim_grid_scores_reference
+                qflat = q_dev.to(torch.bfloat16)
+                doclens_g = torch.zeros(grid.shape[0], dtype=torch.int32, device=device)
+                doclens_g[: index.num_docs_padded] = index.doclens
+                args = (qflat, grid, doclens_g, tq)
+                bound_ms, bound_by, dense_ms = maxsim_bound(qflat, grid, doclens_g, tq)
+                extra = f", dense-grid bound {dense_ms:.3f} ms"
+            else:
+                plain = mk.maxsim_grid_scores_int8i_reference
+                qi8, qs = quantize_queries_int8(q_dev)
+                args = (qi8, qs, pinned.token_grid, pinned.token_scales, tq)
+                bound_ms, bound_by = maxsim_bound_int8(
+                    qi8, [pinned.token_grid], [pinned.token_scales], NUM_QUERIES)
+                extra = ""
+            max_err = check_kernel(kernel, plain, args,
+                                   f"{label} path {NUM_QUERIES}q x {args[-3].shape[0]} rows")
+            kernel_ms = time_ms(lambda: kernel(*args), reps=20)
+            plain_ms = time_ms(lambda: plain(*args), reps=3)
+            print(f"search [{label} grid]: {NUM_QUERIES} queries x {TIMED_PASSES} passes, "
+                  f"p50 {statistics.median(qps):.1f} QPS (min {min(qps):.1f}, max {max(qps):.1f}); "
+                  f"kernel {kernel_ms:.3f} ms/pass, bound {bound_ms:.3f} ms "
+                  f"({bound_by}; {100 * bound_ms / kernel_ms:.1f}% of it){extra}; plain version "
+                  f"{plain_ms:.3f} ms; recall@10 vs f32 oracle {recall:.4f} on {n_eval} queries; "
+                  f"kernel launches {launches}", flush=True)
+            floor = MIN_RECALL if label == "bf16" else MIN_RECALL_INT8
+            if recall < floor:
+                raise AssertionError(f"{label} recall@10 {recall} < {floor}")
+            entries.append((label, launches, max_err, kernel_ms, plain_ms, bound_ms, bound_by))
+        return entries
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
-    # Phase 5: the kernels line, then the device line.
-    print(json.dumps({"kernels": [{
-        "name": "maxsim_grid_scores",
-        "route": "cuda",
-        "source": "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
-        "replaces": "nextplaid_tpu/ops/maxsim_kernel.py:218",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}), flush=True)
+
+def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
+    """The slice's main path at full width: grid-only int8 serving with the
+    device refinement rerank. Returns the int8 kernel's entry."""
+    from nextplaid_tpu_torch.index import (
+        DeviceIndex, IndexConfig, SearchParameters, create_index_streamed,
+        load_grid_only, search_batch, search_batch_async,
+    )
+    from nextplaid_tpu_torch.index.exact import (
+        _finalize_topk_perm, quantize_queries_int8, refine_own_topk_device,
+    )
+    from nextplaid_tpu_torch.index.search import _pad_queries
+
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    path = os.path.join(WORK_DIR, "megascale")
+    try:
+        chunks, sample, lens, topics = mega_corpus(device, n_docs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = create_index_streamed(
+            chunks, path, IndexConfig(nbits=2, seed=42),
+            sample_tokens=sample, est_total_tokens=int(lens.sum()),
+        )
+        build_s = time.perf_counter() - t0
+        del sample
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"grid-only build: {meta.num_documents} docs, {meta.num_embeddings} tokens, "
+              f"K {meta.num_partitions}, nbits 2; create_index_streamed {build_s:.2f} s",
+              flush=True)
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        go = load_grid_only(path, dtype="int8")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if go.refine_side != "device" or len(go.grid_buckets) < 2 or not go.scale_buckets:
+            raise AssertionError(
+                f"expected a bucketed int8 grid with device refinement, got "
+                f"{len(go.grid_buckets)} buckets, refine_side {go.refine_side!r}"
+            )
+        grid_gb = sum(g.numel() + 2 * s.numel() for g, s in zip(go.grid_buckets, go.scale_buckets)) / 1e9
+        buckets = ", ".join(f"Td {g.shape[1]} x {g.shape[0]} rows" for g in go.grid_buckets)
+        print(f"grid-only load: {load_s:.2f} s; buckets [{buckets}]; grid + scales "
+              f"{grid_gb:.3f} GB; refine tables {(go.codes.numel() * 4 + go.residuals.numel()) / 1e9:.3f} GB "
+              f"on the device; allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+              f"(peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB)", flush=True)
+
+        queries = mega_queries(topics)
+        params = SearchParameters(top_k=10, stage1_precision="default")
+        batches = [queries[s : s + MEGA_BATCH] for s in range(0, len(queries), MEGA_BATCH)]
+        search_batch(go, batches[0], params)  # warm-up
+        torch.cuda.synchronize()
+        kernel = mk.maxsim_grid_scores_int8i
+        kernel.launches = 0
+        pass_s, refined = [], None
+        per_pass = MEGA_IN_FLIGHT * MEGA_BATCH
+        for _ in range(MEGA_PASSES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pending = [search_batch_async(go, batches[i % len(batches)], params)
+                       for i in range(MEGA_IN_FLIGHT)]
+            out = [p.result() for p in pending]
+            pass_s.append(time.perf_counter() - t0)
+            refined = out[0]
+        launches = kernel.launches
+        want = MEGA_PASSES * MEGA_IN_FLIGHT * len(go.grid_buckets)
+        if launches < want:
+            raise AssertionError(f"grid-only path launched the int8 kernel {launches} times, "
+                                 f"expected {want}")
+        check_results(refined, MEGA_BATCH)
+        qps = [per_pass / s for s in pass_s]
+        lat = []
+        for q in queries[:10]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            search_batch(go, [q], params)
+            lat.append(1e3 * (time.perf_counter() - t0))
+        unrefined = search_batch(go, batches[0], SearchParameters(
+            top_k=10, stage1_precision="default", refine_depth=-1))
+        check_results(unrefined, MEGA_BATCH)
+
+        # One 64-query batch, piece by piece: kernel per bucket, finalize,
+        # refine; and the kernel against its plain version at these shapes.
+        q_arr, q_mask = _pad_queries(batches[0], go.dim)
+        tq = q_arr.shape[1]
+        q_dev = torch.from_numpy(q_arr).to(device)
+        m_dev = torch.from_numpy(q_mask).to(device)
+        qi8, qs = quantize_queries_int8(q_dev.reshape(-1, go.dim))
+        grids, scales = list(go.grid_buckets), list(go.scale_buckets)
+        max_err = max(
+            check_kernel(kernel, mk.maxsim_grid_scores_int8i_reference,
+                         (qi8, qs, g, s, tq), f"grid-only bucket Td {g.shape[1]}, {MEGA_BATCH}q")
+            for g, s in zip(grids, scales)
+        )
+        kernel_ms = time_ms(lambda: [kernel(qi8, qs, g, s, tq) for g, s in zip(grids, scales)], reps=5)
+        plain_ms = time_ms(lambda: [mk.maxsim_grid_scores_int8i_reference(qi8, qs, g, s, tq)
+                                    for g, s in zip(grids, scales)], reps=1)
+        bound_ms, bound_by = maxsim_bound_int8(qi8, grids, scales, MEGA_BATCH)
+        bounds = torch.cumsum(torch.tensor([0] + [g.shape[0] for g in grids]), 0).tolist()
+        perms = [go.grid_perm[bounds[b] : bounds[b + 1]] for b in range(len(grids))]
+        blocks = [kernel(qi8, qs, g, s, tq) for g, s in zip(grids, scales)]
+        depth = max(4 * params.top_k, 32)
+        finalize_ms = time_ms(lambda: _finalize_topk_perm(blocks, perms, None, depth), reps=5)
+        cand, _ = _finalize_topk_perm(blocks, perms, None, depth)
+        refine_ms = time_ms(lambda: refine_own_topk_device(go, q_dev, m_dev, cand, 10), reps=5)
+        print(f"grid-only search: {MEGA_PASSES} passes of {MEGA_IN_FLIGHT} batches x {MEGA_BATCH} "
+              f"queries in flight, p50 {statistics.median(qps):.2f} QPS (min {min(qps):.2f}, "
+              f"max {max(qps):.2f}); wall {1e3 * statistics.median(pass_s) / MEGA_IN_FLIGHT:.2f} "
+              f"ms/batch; batch-1 p50 {statistics.median(lat):.2f} ms; per 64-query batch: int8 "
+              f"kernel {kernel_ms:.3f} ms over {len(grids)} buckets, bound {bound_ms:.3f} ms "
+              f"({bound_by}; {100 * bound_ms / kernel_ms:.1f}% of it), top-{depth} finalize "
+              f"{finalize_ms:.3f} ms, refine {refine_ms:.3f} ms; plain version {plain_ms:.3f} ms; "
+              f"kernel launches {launches}", flush=True)
+        del go, grids, scales, blocks, cand, perms
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The f32 exhaustive oracle on the first batch.
+        t0 = time.perf_counter()
+        full = DeviceIndex.load(path)
+        oracle = search_batch(full, batches[0], SearchParameters(
+            top_k=10, mode="exact", stage1_precision="highest"))
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t0
+        r_ref, r_raw = recall_at_10(refined, oracle), recall_at_10(unrefined, oracle)
+        print(f"grid-only recall@10 vs the f32 exhaustive scan on {MEGA_BATCH} queries: "
+              f"refined {r_ref:.4f}, unrefined {r_raw:.4f} (oracle load + scan {oracle_s:.2f} s)",
+              flush=True)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        if r_ref < MIN_RECALL or r_raw < MIN_RECALL_INT8:
+            raise AssertionError(f"grid-only recall@10 refined {r_ref} < {MIN_RECALL} or "
+                                 f"unrefined {r_raw} < {MIN_RECALL_INT8}")
+        return launches, max_err, kernel_ms, plain_ms, bound_ms, bound_by
+    finally:
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
+
+
+def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms, bound_ms, bound_by):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
+        return 1
+    from nextplaid_tpu_torch.ops import maxsim_kernel as mk
+
+    device = torch.device("cuda")
+    t_start = time.perf_counter()
+    # Phase 1: device.
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    name = torch.cuda.get_device_name(0)
+    print(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} visible", flush=True)
+
+    # Phase 2: build both kernel libraries from the sources in this checkout.
+    t0 = time.perf_counter()
+    libs = mk.build_all()
+    mk._library()
+    mk._library_int8()
+    build_s = time.perf_counter() - t0
+    for lib_path in libs.values():
+        ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
+                 if "Used" in ln]
+        print(f"build: {lib_path.name}; {'; '.join(ptxas)}", flush=True)
+    print(f"build: both kernels in {build_s:.2f} s", flush=True)
+
+    # Phase 3: each kernel vs its plain version on the card.
+    for label, args in (("bf16 edge cases", edge_case_inputs(device)),
+                        ("bf16 main-path slice 64q x 512 docs", slice_inputs(device))):
+        check_kernel(mk.maxsim_grid_scores, mk.maxsim_grid_scores_reference, args, label)
+    for label, args in (("int8 edge cases", int8_edge_inputs(device)),
+                        ("int8 main-path slice 64q x 512 docs", int8_slice_inputs(device))):
+        check_kernel(mk.maxsim_grid_scores_int8i, mk.maxsim_grid_scores_int8i_reference,
+                     args, label)
+
+    # Phases 4-5: SciFact scale, bf16 and int8 pins.
+    (bf16, _) = scifact_phases(device, mk)
+    # Phase 6: the slice's main path, grid-only int8 serving at scale.
+    int8 = grid_only_phase(device, mk)
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # Phase 7: the kernels line, then the device line.
+    print(json.dumps({"kernels": [
+        kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
+                     "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:]),
+        kernel_entry("maxsim_grid_scores_int8i", "nextplaid_tpu_torch/csrc/maxsim_int8.cu",
+                     "nextplaid_tpu/ops/maxsim_kernel.py:150", *int8),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -10,7 +10,18 @@ in device memory with the JAX package's shapes and padding:
   doclens        [ndocs_pad]       i32   (0 beyond num_documents)
   ivf_offsets    [K + 1]           i32   (CSR over posting lists)
   ivf_doc_ids    [nnz_pad]         i32
-  token_grid     [ND_grid, Td, d]  bf16  (optional pinned decompressed corpus)
+  token_grid     [ND_grid, Td, d]  bf16 or int8 (optional pinned corpus)
+  token_scales   [ND_grid, Td]     bf16  (per-token dequant scales, int8 only)
+
+The int8 grid is doc-major like the bf16 one. The JAX package stores it
+token-interleaved in 128-doc groups ([NB, d, 128*Td], a TPU lane layout);
+`int8_grid_from_interleaved` / `int8_grid_to_interleaved` convert between
+the two bit for bit.
+
+`load_grid_only` builds an index that holds only the grid (single, or one
+grid per doclen bucket) and, for the int8 refinement rerank, the codes and
+residuals: exact-only serving of corpora whose full index and grid would not
+fit together.
 
 The on-disk representation is next-plaid's chunked NPY + JSON directory
 (src/index.rs:373-528), so indexes are interchangeable with the JAX package.
@@ -22,7 +33,7 @@ import dataclasses
 import logging
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +42,7 @@ from nextplaid_tpu_torch.index.config import Metadata
 from nextplaid_tpu_torch.ops import codec as codec_ops
 from nextplaid_tpu_torch.storage.npy import IndexLayout, load_json, load_npy
 from nextplaid_tpu_torch.utils.device import DeviceLike, resolve_device
+from nextplaid_tpu_torch.utils.errors import StorageError
 
 # Padding of the doc and token axes, as in the JAX package.
 PAD_DOCS = 8
@@ -39,11 +51,6 @@ PAD_TOKENS = 128
 # Docs decompressed per step while the token grid is built: bounds the f32
 # temporary to GRID_BUILD_TILE * Td * d * 4 bytes (80 MB at Td 304, d 128).
 GRID_BUILD_TILE = 512
-
-_INT8_DEFERRED = (
-    "int8 token grids are not ported yet (ROADMAP.md, int8 grid slice)"
-)
-
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -67,10 +74,11 @@ def _padded_doc_rows(ndocs: int) -> int:
     return _round_up(ndocs + 1, PAD_DOCS)
 
 
-def _grid_rows_for(nd_pad: int, tile: int = 64) -> int:
+def _grid_rows_for(nd_pad: int, dtype: str = "bf16") -> int:
     """Rows of the pinned grid: the JAX package's layout, 512 slack rows
-    past the padded doc rows, rounded up to its 64-doc build tile."""
-    return _round_up(nd_pad + 512, tile)
+    past the padded doc rows, rounded up to its build tile (64 docs for
+    bf16, one 128-doc group for int8)."""
+    return _round_up(nd_pad + 512, 128 if dtype == "int8" else 64)
 
 
 def _to_tensor(x: np.ndarray, dtype: torch.dtype, device: torch.device):
@@ -94,13 +102,34 @@ class DeviceIndex:
     bucket_cutoffs: torch.Tensor  # [2^nbits - 1] f32
     bucket_weights: torch.Tensor  # [2^nbits] f32
     avg_residual: torch.Tensor  # [d] f32
-    # Optional pinned decompressed corpus [ND_grid, Td, d] bf16, token rows
-    # at or beyond a doc's length zeroed.
+    # Optional pinned decompressed corpus [ND_grid, Td, d], bf16 or int8,
+    # token rows at or beyond a doc's length zeroed.
     token_grid: Optional[torch.Tensor] = None
+    # Per-token dequant scales [ND_grid, Td] bf16, present iff token_grid is
+    # int8 (token ~= int8 row * scale; 0 marks an invalid token).
+    token_scales: Optional[torch.Tensor] = None
     n_docs: int = 0
     n_emb: int = 0
     nbits: int = 4
     max_doclen: int = 0
+    # Grid-only serving (`load_grid_only`): the IVF is a 0-row placeholder
+    # and only exact search over the grid is valid. codes/residuals are
+    # 0-row too unless refine="device" kept them resident for the int8
+    # refinement rerank.
+    grid_only: bool = False
+    # Bucketed-Td grids (`load_grid_only(buckets=...)`): docs partitioned
+    # into doclen buckets, each a grid [rows_b, Td_b, d] with its own Td
+    # (and scales [rows_b, Td_b] when int8). Rows are bucket-major:
+    # `grid_perm` maps a concatenated grid row to its doc id (-1 for
+    # alignment padding) and `grid_doclens` holds each row's length. With
+    # buckets, token_grid/token_scales are None.
+    grid_buckets: Tuple[torch.Tensor, ...] = ()
+    scale_buckets: Tuple[torch.Tensor, ...] = ()
+    grid_perm: Optional[torch.Tensor] = None  # [total_rows] i32
+    grid_doclens: Optional[torch.Tensor] = None  # [total_rows] i32
+    # Host-resident compressed corpus for the refinement rerank
+    # (`load_grid_only(refine="host")`).
+    refine_host: Optional["HostRefineData"] = None
 
     @property
     def num_documents(self) -> int:
@@ -132,6 +161,16 @@ class DeviceIndex:
     def grid_td(self, dtype: str = "bf16") -> int:
         return _grid_td_for(self.max_doclen, dtype)
 
+    def grid_token_axis(self) -> int:
+        """Td of the pinned grid (axis 1 for both dtypes in this package)."""
+        assert self.token_grid is not None
+        return self.token_grid.shape[1]
+
+    def grid_doc_rows(self) -> int:
+        """Doc rows of the pinned grid."""
+        assert self.token_grid is not None
+        return self.token_grid.shape[0]
+
     def token_axis(self) -> int:
         """Td that exact scoring walks: the pinned grid's token axis, else
         max_doclen padded as a bf16 grid's would be."""
@@ -141,7 +180,25 @@ class DeviceIndex:
 
     @property
     def has_grid(self) -> bool:
-        return self.token_grid is not None
+        """True when a pinned token grid (single or bucketed) is present."""
+        return self.token_grid is not None or bool(self.grid_buckets)
+
+    @property
+    def grid_is_int8(self) -> bool:
+        return self.token_scales is not None or bool(self.scale_buckets)
+
+    @property
+    def refine_side(self) -> str:
+        """Resolved grid-only refinement side: "device" (codes/residuals
+        resident), "host" (gathered from the chunk files per batch) or
+        "none"."""
+        if not self.grid_only:
+            return "none"
+        if self.codes.shape[0] > 0:
+            return "device"
+        if self.refine_host is not None:
+            return "host"
+        return "none"
 
     def grid_bytes(self, dtype: str = "bf16") -> int:
         return _grid_bytes_for(
@@ -151,15 +208,14 @@ class DeviceIndex:
     def with_token_grid(
         self, budget_mb: Optional[int] = None, dtype: Optional[str] = None
     ) -> "DeviceIndex":
-        """Return a copy carrying the decompressed bf16 [ND_grid, Td, d]
-        token grid, or self unchanged if the grid exceeds the budget
+        """Return a copy carrying the decompressed [ND_grid, Td, d] token
+        grid, or self unchanged if it exceeds the budget
         (NEXT_PLAID_PIN_BUDGET_MB, default 4096).
 
-        dtype (or NEXT_PLAID_PIN_DTYPE): "bf16" or "auto" (the default),
-        which pins bf16 when it fits. Where the JAX package would pin an int8
-        grid instead (an "int8" request, or "auto" with only the int8 grid
-        under budget), this raises NotImplementedError.
-        """
+        dtype (or NEXT_PLAID_PIN_DTYPE): "bf16", "int8", or "auto" (the
+        default), which pins bf16 when it fits and falls back to int8: per-
+        token symmetric quantization with a bf16 scale per token, d + 2
+        bytes a token instead of 2d."""
         if self.has_grid or self.num_documents == 0:
             return self
         if budget_mb is None:
@@ -173,19 +229,32 @@ class DeviceIndex:
                 dtype,
             )
             dtype = "auto"
-        if dtype == "int8":
-            raise NotImplementedError(_INT8_DEFERRED)
         budget = budget_mb << 20
-        if self.grid_bytes("bf16") > budget:
-            if dtype == "auto" and self.grid_bytes("int8") <= budget:
-                raise NotImplementedError(
-                    f"the bf16 grid needs {self.grid_bytes('bf16') >> 20} MB "
-                    f"> budget {budget_mb} MB and the JAX package would pin "
-                    f"int8 here: {_INT8_DEFERRED}"
+        if dtype == "auto":
+            if self.grid_bytes("bf16") <= budget:
+                dtype = "bf16"
+            elif self.grid_bytes("int8") <= budget:
+                # Loud, because this changes scoring precision for every
+                # query on this index.
+                logging.getLogger(__name__).warning(
+                    "token grid auto-pinning falling back to int8: bf16 "
+                    "grid needs %d MB > budget %d MB. Exact-search scores "
+                    "are now int8-quantized. Set NEXT_PLAID_PIN_DTYPE=bf16 "
+                    "to keep full precision (unpinned if over budget), or "
+                    "int8 to silence this warning.",
+                    self.grid_bytes("bf16") >> 20,
+                    budget_mb,
                 )
+                dtype = "int8"
+            else:
+                return self
+        elif self.grid_bytes(dtype) > budget:
             return self
-        grid = _build_token_grid(self, self.grid_td("bf16"))
-        return dataclasses.replace(self, token_grid=grid)
+        if dtype == "bf16":
+            grid = _build_token_grid(self, self.grid_td("bf16"))
+            return dataclasses.replace(self, token_grid=grid)
+        grid, scales = _build_token_grid_int8(self, self.grid_td("int8"))
+        return dataclasses.replace(self, token_grid=grid, token_scales=scales)
 
     # ------------------------------------------------------------------
     # Construction
@@ -265,14 +334,20 @@ class DeviceIndex:
         num_documents: int,
         num_embeddings: int,
         device: DeviceLike = None,
+        grid_only: bool = False,
     ) -> "DeviceIndex":
         """Build the index from the padded arrays of a `nextplaid_tpu`
         DeviceIndex, converted to numpy, so both packages score the same
         state. `arrays` holds the tensor fields by name (centroids, codes,
         residuals, doc_offsets, doclens, ivf_offsets, ivf_doc_ids,
-        bucket_cutoffs, bucket_weights, avg_residual) and optionally a bf16
-        `token_grid` (given as bfloat16 or as float32 holding bf16 values).
-        """
+        bucket_cutoffs, bucket_weights, avg_residual) and optionally:
+          - `token_grid`: a bf16 grid [ND, Td, d] (as bfloat16 or as float32
+            holding bf16 values), or the JAX package's token-interleaved
+            int8 grid [NB, d, 128*Td] with its `token_scales` [NB, 128*Td];
+          - the bucketed layout: `grid_buckets` and `scale_buckets` (lists,
+            each bucket as above), `grid_perm` and `grid_doclens`.
+        Bf16 values may come as float32; int8 grids are converted to this
+        package's doc-major layout."""
         device = resolve_device(device)
         dtypes = {
             "centroids": torch.float32,
@@ -290,20 +365,44 @@ class DeviceIndex:
             name: _to_tensor(np.asarray(arrays[name]), dt, device)
             for name, dt in dtypes.items()
         }
-        grid = arrays.get("token_grid")
-        if grid is not None:
+
+        def grid_of(grid, scales):
             grid = np.asarray(grid)
-            if grid.dtype == np.int8 or "token_scales" in arrays:
-                raise NotImplementedError(_INT8_DEFERRED)
-            # numpy has no bfloat16 of its own (JAX hands out ml_dtypes').
-            grid = _to_tensor(grid.astype(np.float32), torch.bfloat16, device)
+            if scales is None:
+                # numpy has no bfloat16 of its own (JAX hands out ml_dtypes').
+                return _to_tensor(grid.astype(np.float32), torch.bfloat16, device), None
+            return int8_grid_from_interleaved(
+                _to_tensor(grid, torch.int8, device),
+                _to_tensor(np.asarray(scales).astype(np.float32), torch.bfloat16, device),
+            )
+
+        grid = scales = None
+        if arrays.get("token_grid") is not None:
+            grid, scales = grid_of(arrays["token_grid"], arrays.get("token_scales"))
+        buckets, scale_buckets = [], []
+        scale_list = list(arrays.get("scale_buckets") or ())
+        for b, g in enumerate(arrays.get("grid_buckets") or ()):
+            gb, sb = grid_of(g, scale_list[b] if scale_list else None)
+            buckets.append(gb)
+            if sb is not None:
+                scale_buckets.append(sb)
+        perm = arrays.get("grid_perm")
+        bucket_lens = arrays.get("grid_doclens")
         return cls(
             **fields,
             token_grid=grid,
+            token_scales=scales,
             n_docs=int(num_documents),
             n_emb=int(num_embeddings),
             nbits=int(nbits),
             max_doclen=int(max_doclen),
+            grid_only=bool(grid_only),
+            grid_buckets=tuple(buckets),
+            scale_buckets=tuple(scale_buckets),
+            grid_perm=None if perm is None else _to_tensor(perm, torch.int32, device),
+            grid_doclens=None
+            if bucket_lens is None
+            else _to_tensor(np.asarray(bucket_lens).reshape(-1), torch.int32, device),
         )
 
     @classmethod
@@ -325,13 +424,6 @@ class DeviceIndex:
             nbits=h["meta"].nbits,
             device=device,
         )
-
-
-def load_grid_only(*args, **kwargs) -> DeviceIndex:
-    """Grid-only serving is not ported yet (ROADMAP.md, int8 grid slice)."""
-    raise NotImplementedError(
-        "load_grid_only is not ported yet (ROADMAP.md, int8 grid slice)"
-    )
 
 
 def load_host_arrays(index_path: str) -> dict:
@@ -376,6 +468,31 @@ def load_host_arrays(index_path: str) -> dict:
     }
 
 
+def decompress_windows(
+    codes: torch.Tensor,
+    residuals: torch.Tensor,
+    starts: torch.Tensor,
+    lens: torch.Tensor,
+    td: int,
+    centroids: torch.Tensor,
+    bucket_weights: torch.Tensor,
+    nbits: int,
+) -> torch.Tensor:
+    """Decompressed, renormalized token windows [n, td, d] f32: window i is
+    tokens starts[i] + [0, td) of `codes`/`residuals`, rows at or beyond
+    lens[i] zeroed."""
+    t_ar = torch.arange(td, device=codes.device)
+    tok_pos = torch.clamp(
+        starts.long()[:, None] + t_ar[None, :], 0, max(codes.shape[0] - 1, 0)
+    )
+    emb = codec_ops.decompress_residuals(
+        residuals[tok_pos], codes[tok_pos], centroids, bucket_weights, nbits,
+        normalize=True,
+    )
+    valid = t_ar[None, :] < lens[:, None]
+    return torch.where(valid[:, :, None], emb, torch.zeros((), device=emb.device))
+
+
 def decompress_docs(
     index: DeviceIndex, doc_ids: torch.Tensor, td: int
 ) -> torch.Tensor:
@@ -383,29 +500,58 @@ def decompress_docs(
     token rows at or beyond each doc's length zeroed. Ids past the padded
     doc rows read as empty docs."""
     nd_pad = index.num_docs_padded
-    nvec_pad = index.codes.shape[0]
     safe = torch.clamp(doc_ids, max=nd_pad - 1).long()
     lens = torch.where(doc_ids < nd_pad, index.doclens[safe], 0)
-    t_ar = torch.arange(td, device=doc_ids.device)
-    tok_pos = torch.clamp(
-        index.doc_offsets[safe].long()[:, None] + t_ar[None, :], 0, nvec_pad - 1
+    return decompress_windows(
+        index.codes, index.residuals, index.doc_offsets[safe], lens, td,
+        index.centroids, index.bucket_weights, index.nbits,
     )
-    emb = codec_ops.decompress_residuals(
-        index.residuals[tok_pos],
-        index.codes[tok_pos],
-        index.centroids,
-        index.bucket_weights,
-        index.nbits,
-        normalize=True,
-    )
-    valid = t_ar[None, :] < lens[:, None]
-    return torch.where(valid[:, :, None], emb, torch.zeros((), device=emb.device))
+
+
+def quantize_tokens_int8(
+    emb: torch.Tensor, valid: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-token int8 quantization, in the JAX package's order:
+    scale = maxabs / 127 in f32 (1.0 for an all-zero token), q =
+    clip(round(x / scale), -127, 127) (round half to even), and the scale is
+    stored rounded to bf16, 0 for invalid tokens. Returns (q int8 [..., d],
+    scales bf16 [...])."""
+    maxabs = emb.abs().amax(dim=-1)
+    scale = torch.where(maxabs > 0, maxabs / 127.0, torch.ones_like(maxabs))
+    q = torch.clamp(torch.round(emb / scale[..., None]), -127, 127).to(torch.int8)
+    stored = torch.where(valid, scale, torch.zeros_like(scale)).to(torch.bfloat16)
+    return q, stored
+
+
+def int8_grid_from_interleaved(
+    grid_i: torch.Tensor, scales_i: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's token-interleaved int8 grid ([NB, d, 128*Td], doc
+    g*128 + j token t at [g, :, t*128 + j]; scales [NB, 128*Td]) as this
+    package's doc-major grid [NB*128, Td, d] and scales [NB*128, Td]. Bit
+    exact; `int8_grid_to_interleaved` is the inverse."""
+    nb, d, ld = grid_i.shape
+    td = ld // 128
+    grid = grid_i.reshape(nb, d, td, 128).permute(0, 3, 2, 1).reshape(nb * 128, td, d)
+    scales = scales_i.reshape(nb, td, 128).permute(0, 2, 1).reshape(nb * 128, td)
+    return grid.contiguous(), scales.contiguous()
+
+
+def int8_grid_to_interleaved(
+    grid: torch.Tensor, scales: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of `int8_grid_from_interleaved` (rows a multiple of 128)."""
+    rows, td, d = grid.shape
+    nb = rows // 128
+    grid_i = grid.reshape(nb, 128, td, d).permute(0, 3, 2, 1).reshape(nb, d, 128 * td)
+    scales_i = scales.reshape(nb, 128, td).permute(0, 2, 1).reshape(nb, 128 * td)
+    return grid_i.contiguous(), scales_i.contiguous()
 
 
 def _build_token_grid(index: DeviceIndex, td: int) -> torch.Tensor:
     """Decompress the whole corpus once into the padded bf16 token grid
     [ND_grid, td, d] (the JAX package's `_build_token_grid`, same rows)."""
-    nd_grid = _grid_rows_for(index.num_docs_padded)
+    nd_grid = _grid_rows_for(index.num_docs_padded, "bf16")
     grid = torch.empty(
         (nd_grid, td, index.dim), dtype=torch.bfloat16, device=index.device
     )
@@ -417,3 +563,433 @@ def _build_token_grid(index: DeviceIndex, td: int) -> torch.Tensor:
             torch.bfloat16
         )
     return grid
+
+
+def _build_token_grid_int8(
+    index: DeviceIndex, td: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decompress and quantize the whole corpus once into the doc-major int8
+    grid [ND_grid, td, d] and its bf16 scales [ND_grid, td] (the rows of
+    the JAX package's `_build_token_grid_int8`, not its interleave)."""
+    nd_grid = _grid_rows_for(index.num_docs_padded, "int8")
+    dev = index.device
+    grid = torch.empty((nd_grid, td, index.dim), dtype=torch.int8, device=dev)
+    scales = torch.empty((nd_grid, td), dtype=torch.bfloat16, device=dev)
+    t_ar = torch.arange(td, device=dev)
+    nd_pad = index.num_docs_padded
+    for start in range(0, nd_grid, GRID_BUILD_TILE):
+        ids = torch.arange(start, min(start + GRID_BUILD_TILE, nd_grid), device=dev)
+        lens = torch.where(
+            ids < nd_pad, index.doclens[torch.clamp(ids, max=nd_pad - 1)], 0
+        )
+        q, sc = quantize_tokens_int8(
+            decompress_docs(index, ids, td), t_ar[None, :] < lens[:, None]
+        )
+        grid[start : start + ids.shape[0]] = q
+        scales[start : start + ids.shape[0]] = sc
+    return grid, scales
+
+
+# ----------------------------------------------------------------------
+# Grid-only loading: serve exact search from the pinned grid alone.
+# ----------------------------------------------------------------------
+
+
+def choose_bucket_tds(
+    doclens: np.ndarray,
+    mult: int,
+    max_buckets: int = 4,
+    min_gain: float = 0.08,
+    row_pad: int = 128,
+) -> List[int]:
+    """Pick ascending Td boundaries minimizing total grid token slots (a
+    copy of the JAX package's `choose_bucket_tds`).
+
+    Candidates are the distinct per-doc round_up(len, mult) values
+    (subsampled to <=24 plus the max). Exact DP over (candidate, bucket
+    count); each bucket charges `row_pad` extra rows of its Td for the
+    per-bucket row alignment, which prices tiny buckets out. Falls back to
+    a single global Td when the best bucketing saves < min_gain of slots.
+    """
+    nd = int(doclens.shape[0])
+    if nd == 0:
+        return [mult]
+    per_doc = np.maximum(
+        ((np.maximum(doclens.astype(np.int64), 1) + mult - 1) // mult) * mult,
+        mult,
+    )
+    cands, counts = np.unique(per_doc, return_counts=True)
+    if len(cands) > 24:
+        keep = np.unique(
+            np.concatenate(
+                [
+                    cands[
+                        np.searchsorted(
+                            np.cumsum(counts),
+                            np.linspace(0, nd - 1, 23).astype(np.int64),
+                            side="right",
+                        ).clip(0, len(cands) - 1)
+                    ],
+                    cands[-1:],
+                ]
+            )
+        )
+        # Re-bin counts onto the kept boundaries (docs go to the first
+        # boundary >= their Td).
+        idx = np.searchsorted(keep, cands, side="left")
+        counts = np.bincount(idx, weights=counts, minlength=len(keep))
+        cands = keep
+    single_cost = nd * int(cands[-1])
+    n_c = len(cands)
+    max_b = min(max_buckets, n_c)
+    # f[b][j] = min slots covering candidate prefix 0..j with b buckets,
+    # the last bucket's Td = cands[j].
+    csum = np.concatenate([[0], np.cumsum(counts)])
+    inf = float("inf")
+    f = [[inf] * n_c for _ in range(max_b + 1)]
+    parent = [[-1] * n_c for _ in range(max_b + 1)]
+    for j in range(n_c):
+        f[1][j] = csum[j + 1] * int(cands[j]) + row_pad * int(cands[j])
+    for b in range(2, max_b + 1):
+        for j in range(b - 1, n_c):
+            for i in range(b - 2, j):
+                c = (
+                    f[b - 1][i]
+                    + (csum[j + 1] - csum[i + 1]) * int(cands[j])
+                    + row_pad * int(cands[j])
+                )
+                if c < f[b][j]:
+                    f[b][j] = c
+                    parent[b][j] = i
+    best_b = min(range(1, max_b + 1), key=lambda b: f[b][n_c - 1])
+    if f[best_b][n_c - 1] >= single_cost * (1.0 - min_gain):
+        return [int(cands[-1])]
+    tds = []
+    b, j = best_b, n_c - 1
+    while j >= 0 and b >= 1:
+        tds.append(int(cands[j]))
+        j = parent[b][j]
+        b -= 1
+    return sorted(tds)
+
+
+def _device_hbm_bytes(device: torch.device) -> Optional[int]:
+    """Memory of `device` in bytes, or None where there is no such limit to
+    check against (the CPU)."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.get_device_properties(device).total_memory)
+
+
+def _require_grid_fits(
+    grid_bytes: int, staging_bytes: int, device: torch.device
+) -> None:
+    """Raise StorageError before allocating a grid that cannot fit the
+    device: grid(s) (+ resident refine tables) + the peak transient of one
+    chunk's build."""
+    limit = _device_hbm_bytes(device)
+    if limit is None:
+        return
+    need = grid_bytes + staging_bytes
+    if need > limit:
+        raise StorageError(
+            f"grid-only load needs ~{need >> 20} MB "
+            f"(grid {grid_bytes >> 20} MB + chunk staging "
+            f"{staging_bytes >> 20} MB) but the device has "
+            f"{limit >> 20} MB. Options: dtype='int8' (half the bf16 grid), "
+            "buckets>1 (cuts Td padding), refine='host' (no resident refine "
+            "tables), or serve unpinned via DeviceIndex.load."
+        )
+
+
+class HostRefineData:
+    """Host-resident compressed corpus for the grid-only refinement rerank
+    (a copy of the JAX package's). The chunk arrays stay numpy memory maps
+    of the chunk files, so untouched pages never load; `gather` pulls the
+    token rows of a candidate set for the exact re-score."""
+
+    def __init__(self, chunk_codes, chunk_residuals, chunk_doc_starts,
+                 chunk_tok_starts, doc_offsets, doclens):
+        self.chunk_codes = chunk_codes  # list of [ctok_i] mmaps
+        self.chunk_residuals = chunk_residuals  # list of [ctok_i, pd] mmaps
+        self.chunk_doc_starts = chunk_doc_starts  # [nchunks+1] i64
+        self.chunk_tok_starts = chunk_tok_starts  # [nchunks+1] i64
+        self.doc_offsets = doc_offsets  # [nd(+pad)] i64, global token offs
+        self.doclens = doclens  # [nd] i32
+
+    def gather(self, doc_ids: np.ndarray):
+        """Token rows for `doc_ids` (valid, any order) concatenated in the
+        given doc order. Returns (codes [T] i32, residuals [T, pd] u8,
+        lens [n] i32)."""
+        ids = np.asarray(doc_ids, np.int64)
+        lens = self.doclens[ids].astype(np.int64)
+        total = int(lens.sum())
+        pd = self.chunk_residuals[0].shape[1] if self.chunk_residuals else 0
+        codes = np.empty(total, np.int32)
+        res = np.empty((total, pd), np.uint8)
+        chunk_of = np.searchsorted(self.chunk_doc_starts, ids, side="right") - 1
+        out_offs = np.zeros(len(ids) + 1, np.int64)
+        np.cumsum(lens, out=out_offs[1:])
+        for c in np.unique(chunk_of):
+            sel = np.nonzero(chunk_of == c)[0]
+            local_start = self.doc_offsets[ids[sel]] - self.chunk_tok_starts[c]
+            lsel = lens[sel]
+            # Flat token index into chunk c for every selected doc's tokens.
+            n_tok = int(lsel.sum())
+            base = np.repeat(local_start, lsel)
+            within = np.arange(n_tok, dtype=np.int64) - np.repeat(
+                np.concatenate([[0], np.cumsum(lsel[:-1])]), lsel
+            )
+            tok_idx = base + within
+            dst = np.repeat(out_offs[sel], lsel) + within
+            codes[dst] = np.asarray(self.chunk_codes[c])[tok_idx]
+            res[dst] = np.asarray(self.chunk_residuals[c])[tok_idx]
+        return codes, res, lens.astype(np.int32)
+
+
+def load_grid_only(
+    index_path: str,
+    dtype: str = "int8",
+    buckets: int = 4,
+    bucket_min_gain: float = 0.08,
+    bucket_row_pad: int = 128,
+    refine=True,
+    device: DeviceLike = None,
+) -> DeviceIndex:
+    """Load an index for exact-only serving: stream the on-disk chunks
+    through decompress (+ quantize for int8) into a pinned token grid, with
+    the IVF never resident.
+
+    `buckets` > 1 partitions docs into up to that many doclen buckets, each
+    with its own Td (`choose_bucket_tds`), when that saves >= 8% of token
+    slots; `buckets=1` forces one grid.
+
+    `refine` configures the int8 grid's exact-rerank stage (next-plaid
+    search.rs:460-493). True = "auto": codes/residuals resident on the
+    device when they fit next to the grid, else gathered from the host;
+    "device"/"host" force a side; False disables it. bf16 grids are already
+    exact, so they never refine.
+
+    The index serves `search_batch`/`search_batch_async` in exact mode only;
+    other modes raise SearchError. Runs on `device` ("cuda" when None)."""
+    device = resolve_device(device)
+    layout = IndexLayout(index_path)
+    meta = Metadata.from_dict(load_json(layout.metadata))
+    if dtype not in ("bf16", "int8"):
+        raise StorageError(f"grid-only dtype must be bf16|int8: {dtype}")
+
+    def dev_f32(path):
+        return _to_tensor(load_npy(path), torch.float32, device)
+
+    centroids = dev_f32(layout.centroids)
+    weights = dev_f32(layout.bucket_weights)
+    dim = centroids.shape[1]
+    packed_dim = dim * meta.nbits // 8
+
+    doclens_list = [
+        np.asarray(load_json(layout.chunk_doclens(i)), np.int64)
+        for i in range(meta.num_chunks)
+    ]
+    doclens_all = (
+        np.concatenate(doclens_list) if doclens_list else np.zeros(0, np.int64)
+    ).astype(np.int32)
+    nd = int(doclens_all.shape[0])
+    n_emb = int(doclens_all.sum())
+    max_doclen = int(doclens_all.max()) if nd else 0
+    mult = 32 if dtype == "int8" else 8  # see _grid_td_for
+    tile = 128
+    tds = (
+        choose_bucket_tds(
+            doclens_all, mult, max_buckets=buckets, min_gain=bucket_min_gain,
+            row_pad=bucket_row_pad,
+        )
+        if buckets > 1 and nd > 0
+        else [_grid_td_for(max_doclen, dtype)]
+    )
+
+    nd_pad = _padded_doc_rows(nd)
+    doclens_p = np.zeros(nd_pad, np.int32)
+    doclens_p[:nd] = doclens_all
+    doc_offsets = np.zeros(nd_pad + 1, np.int64)
+    np.cumsum(doclens_p, out=doc_offsets[1:])
+
+    if refine is True:
+        refine_mode = "auto"
+    elif refine in (False, None):
+        refine_mode = "none"
+    elif refine in ("auto", "host", "device"):
+        refine_mode = refine
+    else:
+        raise StorageError(
+            f"refine must be True/False/'auto'/'host'/'device': {refine!r}"
+        )
+    if nd == 0 or dtype != "int8":
+        refine_mode = "none"
+    refine_dev_bytes = n_emb * (4 + packed_dim)
+    chunk_docs = [len(d) for d in doclens_list]
+    chunk_tokens = [int(d.sum()) for d in doclens_list]
+    slot_bytes = dim + 2 if dtype == "int8" else dim * 2
+    # Peak transient of one chunk's build: its codes and residuals on the
+    # device and one decompress tile's f32 temporaries.
+    staging = (
+        max(chunk_tokens, default=0) * (4 + packed_dim)
+        + GRID_BUILD_TILE * max(tds) * dim * 4 * 4
+        + (128 << 20)
+    )
+
+    # Row geometry of the JAX package (container.py nd_grid / rows_b), so
+    # scores and grid_perm line up with it row for row. Its slack of
+    # cdoc_pad + 128 rows keeps the XLA chunk writes (and the int8 group
+    # rewrite, `_write_int8_groups`) from clamping; this package writes
+    # doc-major rows in place and needs neither, but keeps the geometry.
+    def cdoc_pad(counts):
+        return max(_round_up(max(counts, default=1), tile), tile)
+
+    if len(tds) == 1:
+        rows = [
+            _round_up(nd_pad + 512, tile) + cdoc_pad(chunk_docs) + 128
+        ]
+        bucket_of = np.zeros(nd, np.int64)
+    else:
+        per_doc_td = np.maximum(
+            ((np.maximum(doclens_all.astype(np.int64), 1) + mult - 1) // mult)
+            * mult,
+            mult,
+        )
+        bucket_of = np.searchsorted(np.asarray(tds, np.int64), per_doc_td, side="left")
+        chunk_starts = np.concatenate([[0], np.cumsum(chunk_docs)]).astype(np.int64)
+        rows = []
+        for b in range(len(tds)):
+            in_b = bucket_of == b
+            per_chunk = [
+                int(np.count_nonzero(in_b[chunk_starts[i] : chunk_starts[i + 1]]))
+                for i in range(meta.num_chunks)
+            ]
+            rows.append(
+                max(_round_up(max(int(in_b.sum()), 1), tile), tile)
+                + cdoc_pad(per_chunk)
+                + 128
+            )
+    grid_bytes = sum(r * td for r, td in zip(rows, tds)) * slot_bytes
+    side = refine_mode
+    if side == "auto":
+        limit = _device_hbm_bytes(device)
+        fits = limit is None or grid_bytes + staging + refine_dev_bytes <= limit
+        side = "device" if fits else "host"
+    _require_grid_fits(
+        grid_bytes + (refine_dev_bytes if side == "device" else 0), staging, device
+    )
+
+    grids = [
+        torch.zeros(
+            (r, td, dim),
+            dtype=torch.int8 if dtype == "int8" else torch.bfloat16,
+            device=device,
+        )
+        for r, td in zip(rows, tds)
+    ]
+    scale_grids = [
+        torch.zeros((r, td), dtype=torch.bfloat16, device=device)
+        for r, td in zip(rows, tds)
+    ] if dtype == "int8" else []
+    if side == "device":
+        codes_all = torch.empty(n_emb, dtype=torch.int32, device=device)
+        res_all = torch.empty((n_emb, packed_dim), dtype=torch.uint8, device=device)
+    else:
+        codes_all = torch.zeros(0, dtype=torch.int32, device=device)
+        res_all = torch.zeros((0, packed_dim), dtype=torch.uint8, device=device)
+
+    # One pass over the chunks: each is read from disk and staged on the
+    # device once, and its docs' rows are written into their grid in place.
+    rows_written = [0] * len(tds)
+    tok0 = 0
+    doc0 = 0
+    for i in range(meta.num_chunks):
+        codes_c = _to_tensor(load_npy(layout.chunk_codes(i)), torch.int32, device)
+        res_c = _to_tensor(load_npy(layout.chunk_residuals(i)), torch.uint8, device)
+        if side == "device":
+            codes_all[tok0 : tok0 + codes_c.shape[0]] = codes_c
+            res_all[tok0 : tok0 + codes_c.shape[0]] = res_c
+        dl = doclens_list[i]
+        offs = np.zeros(len(dl), np.int64)
+        np.cumsum(dl[:-1], out=offs[1:])
+        in_chunk = bucket_of[doc0 : doc0 + len(dl)]
+        for b, td in enumerate(tds):
+            local = np.nonzero(in_chunk == b)[0]
+            for s in range(0, len(local), GRID_BUILD_TILE):
+                sel = local[s : s + GRID_BUILD_TILE]
+                lens = torch.from_numpy(dl[sel]).to(device)
+                emb = decompress_windows(
+                    codes_c, res_c, torch.from_numpy(offs[sel]).to(device), lens,
+                    td, centroids, weights, meta.nbits,
+                )
+                r0 = rows_written[b]
+                if dtype == "int8":
+                    valid = torch.arange(td, device=device)[None, :] < lens[:, None]
+                    q, sc = quantize_tokens_int8(emb, valid)
+                    grids[b][r0 : r0 + len(sel)] = q
+                    scale_grids[b][r0 : r0 + len(sel)] = sc
+                else:
+                    grids[b][r0 : r0 + len(sel)] = emb.to(torch.bfloat16)
+                rows_written[b] += len(sel)
+        tok0 += codes_c.shape[0]
+        doc0 += len(dl)
+        del codes_c, res_c
+
+    refine_host = None
+    if side == "host":
+        cds = np.zeros(meta.num_chunks + 1, np.int64)
+        cts = np.zeros(meta.num_chunks + 1, np.int64)
+        np.cumsum(chunk_docs, out=cds[1:])
+        np.cumsum(chunk_tokens, out=cts[1:])
+        refine_host = HostRefineData(
+            chunk_codes=[load_npy(layout.chunk_codes(i)) for i in range(meta.num_chunks)],
+            chunk_residuals=[
+                load_npy(layout.chunk_residuals(i)) for i in range(meta.num_chunks)
+            ],
+            chunk_doc_starts=cds,
+            chunk_tok_starts=cts,
+            doc_offsets=doc_offsets,
+            doclens=doclens_all,
+        )
+
+    common = dict(
+        centroids=centroids,
+        codes=codes_all,
+        residuals=res_all,
+        doc_offsets=_to_tensor(doc_offsets, torch.int32, device),
+        doclens=_to_tensor(doclens_p, torch.int32, device),
+        ivf_offsets=torch.zeros(centroids.shape[0] + 1, dtype=torch.int32, device=device),
+        ivf_doc_ids=torch.zeros(0, dtype=torch.int32, device=device),
+        bucket_cutoffs=dev_f32(layout.bucket_cutoffs),
+        bucket_weights=weights,
+        avg_residual=dev_f32(layout.avg_residual),
+        n_docs=nd,
+        n_emb=n_emb,
+        nbits=meta.nbits,
+        max_doclen=max_doclen,
+        grid_only=True,
+        refine_host=refine_host,
+    )
+    if len(tds) == 1:
+        return DeviceIndex(
+            token_grid=grids[0],
+            token_scales=scale_grids[0] if scale_grids else None,
+            **common,
+        )
+    perm_parts, len_parts = [], []
+    for b, r in enumerate(rows):
+        ids = np.nonzero(bucket_of == b)[0].astype(np.int32)
+        perm_b = np.full(r, -1, np.int32)
+        perm_b[: len(ids)] = ids
+        perm_parts.append(perm_b)
+        lens_b = np.zeros(r, np.int32)
+        lens_b[: len(ids)] = doclens_all[ids]
+        len_parts.append(lens_b)
+    return DeviceIndex(
+        grid_buckets=tuple(grids),
+        scale_buckets=tuple(scale_grids),
+        grid_perm=_to_tensor(np.concatenate(perm_parts), torch.int32, device),
+        grid_doclens=_to_tensor(np.concatenate(len_parts), torch.int32, device),
+        **common,
+    )

@@ -1,9 +1,10 @@
 """Where the time of one search pass goes, for nextplaid_tpu_torch on a GPU.
 
-    python scripts/profile_torch_search.py [--passes 5]
+    python scripts/profile_torch_search.py [--passes 5] [--dtype bf16|int8]
 
 Builds the SciFact-scale index of chip_smoke.py on the card, pins the bf16
-grid, and runs `search_batch` over 320 queries under torch.profiler. Prints
+(or int8) grid, and runs `search_batch` over 320 queries under
+torch.profiler. Prints
 the device time of each kernel per pass, the pass's wall time, and the
 share of it the device sat idle, as one JSON line. Needs CUDA.
 """
@@ -35,6 +36,7 @@ from nextplaid_tpu_torch.index import (  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--passes", type=int, default=5)
+    ap.add_argument("--dtype", choices=("bf16", "int8"), default="bf16")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_search: CUDA is not available", file=sys.stderr)
@@ -46,7 +48,7 @@ def main() -> int:
         tokens, topics = chip_smoke.make_corpus(doclens, torch.device("cuda"))
         create_index_from_device(tokens, doclens, work, IndexConfig(nbits=4, seed=42))
         del tokens
-        index = DeviceIndex.load(work).with_token_grid(dtype="bf16")
+        index = DeviceIndex.load(work).with_token_grid(dtype=args.dtype)
         queries = chip_smoke.make_queries(topics)
         params = SearchParameters(top_k=10, stage1_precision="default")
         search_batch(index, queries, params)  # warm-up (and kernel build)
@@ -70,6 +72,7 @@ def main() -> int:
     busy_ms = sum(per_pass.values())
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "grid": args.dtype,
         "passes": args.passes,
         "wall_ms_per_pass": wall_ms,
         "device_busy_ms_per_pass": busy_ms,

@@ -193,13 +193,20 @@ def test_unported_routes_raise(built):
         search_batch(index, queries, staged)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         search_batch(index, queries, dataclasses.replace(staged, mode="staged"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        index.with_token_grid(budget_mb=10_000, dtype="int8")
     # Over budget: unpinned, as in the JAX package.
     assert index.with_token_grid(budget_mb=0, dtype="bf16").token_grid is None
-    int8 = dict(_arrays(ref), token_grid=np.zeros((1, 32, 128 * 8), np.int8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceIndex.from_reference_arrays(
-            int8, nbits=4, max_doclen=8, num_documents=1, num_embeddings=8,
-            device="cpu",
-        )
+    # The JAX package's int8 grid (token-interleaved) carries across.
+    ref8 = ref.with_token_grid(budget_mb=10_000, dtype="int8")
+    int8 = dict(
+        _arrays(ref),
+        token_grid=np.asarray(ref8.token_grid),
+        token_scales=np.asarray(ref8.token_scales.astype(jnp.float32)),
+    )
+    carried = DeviceIndex.from_reference_arrays(
+        int8, nbits=ref.nbits, max_doclen=ref.max_doclen,
+        num_documents=ref.num_documents, num_embeddings=ref.num_embeddings,
+        device="cpu",
+    )
+    assert carried.grid_is_int8 and carried.token_grid.dtype.is_signed
+    assert carried.grid_doc_rows() == ref8.grid_doc_rows()
+    assert carried.grid_token_axis() == ref8.grid_token_axis()
