@@ -2,22 +2,31 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA MaxSim kernels (bf16 and int8) from the sources in this
-checkout, one nvcc each, at once, and holds each against its plain PyTorch
-version on the card. Then drives the port's paths:
-  1. SciFact scale (5,183 docs, doclens 64-300, ~1.5M tokens, d 128,
+Builds the three CUDA kernel sources (bf16 MaxSim, int8 MaxSim, the MaxSim
+variant family) from this checkout, one nvcc each, at once, and holds each
+kernel against its plain PyTorch version on the card. Then drives the port's
+paths:
+  1. the variant sweep of scripts/profile_torch_kernel_variants.py (5,184
+     docs x Td 384 x d 128, 64 queries x 32 tokens): every variant checked
+     and timed beside the one-big-dot floor and the bound;
+  2. SciFact scale (5,183 docs, doclens 64-300, ~1.5M tokens, d 128,
      nbits 4, 16,384 centroids): a corpus made on the card from a seed,
      `create_index_from_device`, `DeviceIndex.load`,
      `with_token_grid(dtype="bf16")` and `search_batch` over 320 queries,
      with recall@10 against the f32 exhaustive oracle;
-  2. the same index pinned as an int8 grid (`with_token_grid("int8")`);
-  3. grid-only int8 serving with the exact refinement rerank at the scale
+  3. the same index pinned as an int8 grid (`with_token_grid("int8")`);
+  4. grid-only int8 serving with the exact refinement rerank at the scale
      of scripts/profile_megascale.py (473,000 docs, doclens 100-220,
      ~75.7M tokens, nbits 2, 131,072 centroids): chunks made on the card,
      `create_index_streamed`, `load_grid_only(dtype="int8")` (4 doclen
      buckets, refinement on the device), pipelined `search_batch_async`
      batches of 64 queries, recall@10 refined and unrefined against the f32
-     exhaustive scan of `DeviceIndex.load`.
+     exhaustive scan of `DeviceIndex.load`;
+  5. the staged PLAID pipeline on that full index (`mode="staged"`, the
+     operating points of scripts/profile_megascale.py and the "quality"
+     preset), stage 4 through the bf16 MaxSim kernel on the transient union
+     grid: QPS, batch-1 latency, recall@10 against the same oracle, and a
+     batch's time stage by stage.
 Each path's kernel launch counts are set to 0 just before it and read just
 after.
 
@@ -65,6 +74,26 @@ MEGA_SAMPLE_TOKENS = 1 << 21
 MEGA_BATCH = 64
 MEGA_IN_FLIGHT = 6
 MEGA_PASSES = 5
+
+# Staged path: scripts/profile_megascale.py's operating points, each with the
+# JAX package's own recorded recall@10 (docs/benchmarks/megascale_tpu.json,
+# a property of the algorithm, not of the TPU); the port must reach it less
+# RECALL_SLACK. The "quality" preset must reach MIN_RECALL_QUALITY.
+STAGED_POINTS = (
+    ("cells nprobe 8 keep 256", dict(approx_score="cells", n_ivf_probe=8, prune_keep=256), 0.9203),
+    ("cells nprobe 8 keep 1024", dict(approx_score="cells", n_ivf_probe=8, prune_keep=1024), 0.9750),
+    ("codes nprobe 8 keep 256", dict(approx_score="codes", n_ivf_probe=8, prune_keep=256), 0.9688),
+    ("cells nprobe 16 keep 1024", dict(approx_score="cells", n_ivf_probe=16, prune_keep=1024), 0.9906),
+)
+STAGED_COMMON = dict(top_k=10, mode="staged", overflow_policy="prune", stage1_precision="default")
+RECALL_SLACK = 0.03
+MIN_RECALL_QUALITY = 0.97
+STAGED_PASSES = 3
+# Kernel route vs scan route of stage 4: both score bf16-rounded tokens and
+# queries with f32 sums; the tie rule's tolerance is the bf16 one.
+STAGE4_TOL = 2e-2
+# The probe's sums hold ~1e6 products each, summed in other orders.
+PROBE_RTOL = 1e-3
 
 
 def make_doclens(num_docs=5183, avg_len=290, seed=0):
@@ -412,8 +441,9 @@ def scifact_phases(device, mk):
 
 
 def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
-    """The slice's main path at full width: grid-only int8 serving with the
-    device refinement rerank. Returns the int8 kernel's entry."""
+    """Grid-only int8 serving with the device refinement rerank at full
+    width, then the staged path on the full index loaded for the oracle.
+    Returns the int8 kernel's numbers and the bf16 kernel's staged ones."""
     from nextplaid_tpu_torch.index import (
         DeviceIndex, IndexConfig, SearchParameters, create_index_streamed,
         load_grid_only, search_batch, search_batch_async,
@@ -539,15 +569,228 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
         print(f"grid-only recall@10 vs the f32 exhaustive scan on {MEGA_BATCH} queries: "
               f"refined {r_ref:.4f}, unrefined {r_raw:.4f} (oracle load + scan {oracle_s:.2f} s)",
               flush=True)
-        del full
-        gc.collect()
-        torch.cuda.empty_cache()
         if r_ref < MIN_RECALL or r_raw < MIN_RECALL_INT8:
             raise AssertionError(f"grid-only recall@10 refined {r_ref} < {MIN_RECALL} or "
                                  f"unrefined {r_raw} < {MIN_RECALL_INT8}")
-        return launches, max_err, kernel_ms, plain_ms, bound_ms, bound_by
+        # This slice's main path: staged search over the same full index.
+        staged = staged_phase(full, device, mk, batches, queries, oracle)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        return (launches, max_err, kernel_ms, plain_ms, bound_ms, bound_by), staged
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
+
+
+def variants_phase(device, mv):
+    """The variant sweep at its shape: every variant of csrc/maxsim_variants.cu
+    against its plain version, then timed beside the one-big-dot floor and the
+    bound. Returns the family's entry of the kernels line."""
+    tq = mv.SWEEP_SHAPE["tq"]
+    q_n = 64
+    qflat, grid, lens, addmask = mv.sweep_inputs(device, q_n)
+    kernel = mv.maxsim_variant_scores
+    plain_max = mv.maxsim_variant_scores_reference(qflat, grid, lens, tq)
+    plain_ms = time_ms(lambda: mv.maxsim_variant_scores_reference(qflat, grid, lens, tq), reps=3)
+    floor_ms = time_ms(lambda: mv.one_big_dot_floor(qflat, grid), reps=5)
+    valid_rows = int(lens.sum())
+    ops = 2.0 * qflat.shape[0] * grid.shape[2] * valid_rows
+    nbytes = qflat.numel() * 2 + grid.numel() * 2 + lens.numel() * 4 + q_n * grid.shape[0] * 4
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    bound_ms, bound_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+    def call(variant):
+        name, mask, geometry, reduce, dots = variant
+        arg = addmask if mask == "additive" else lens
+        return kernel(qflat, grid, arg, tq, mask=mask, geometry=geometry,
+                      reduce=reduce, dots_only=dots)
+
+    # Each variant against its plain version (launches here are not counted).
+    plain_probe, err_max, err_probe = {}, 0.0, 0.0
+    for variant in mv.SWEEP_VARIANTS:
+        name, mask, geometry, reduce, dots = variant
+        got = call(variant)
+        torch.cuda.synchronize()
+        if dots:
+            if geometry[0] not in plain_probe:
+                plain_probe[geometry[0]] = mv.maxsim_variant_scores_reference(
+                    qflat, grid, lens, tq, geometry=geometry, dots_only=True)
+            want, rtol = plain_probe[geometry[0]], PROBE_RTOL
+        else:
+            want, rtol = plain_max, KERNEL_RTOL
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"variant {name}: output is not finite or misshaped")
+        err = float((got - want).abs().max())
+        tol = rtol * max(float(want.abs().max()), 1.0)
+        if not err <= tol:
+            raise AssertionError(f"variant {name} disagrees with its plain version: {err} > {tol}")
+        if dots:
+            err_probe = max(err_probe, err)
+        else:
+            err_max = max(err_max, err)
+    print(f"kernel check [variants]: {len(mv.SWEEP_VARIANTS)} variants at grid {tuple(grid.shape)}, "
+          f"{q_n} queries: max|kernel - plain| = {err_max:.3e} (tolerance {KERNEL_RTOL:g} x max|score| "
+          f"{float(plain_max.abs().max()):.3f}); dots-only probe {err_probe:.3e} (tolerance "
+          f"{PROBE_RTOL:g} x max|sum|)", flush=True)
+
+    # The sweep itself: launches counted from here.
+    kernel.launches = 0
+    times = {}
+    for variant in mv.SWEEP_VARIANTS:
+        times[variant[0]] = time_ms(lambda: call(variant), reps=5)
+    launches = kernel.launches
+    if launches < 6 * len(mv.SWEEP_VARIANTS):
+        raise AssertionError(f"the sweep launched the variant kernel {launches} times")
+    print(f"variant sweep: bound {bound_ms:.3f} ms ({bound_by}; {valid_rows} valid rows' products "
+          f"at 989 TFLOP/s), one-big-dot floor (torch.matmul) {floor_ms:.3f} ms, plain version "
+          f"{plain_ms:.3f} ms; kernel launches {launches}", flush=True)
+    for name, ms in times.items():
+        print(f"  variant {name:18s} {ms:8.3f} ms  ({100 * bound_ms / ms:5.1f}% of the bound, "
+              f"{ms / floor_ms:5.2f} x the floor)", flush=True)
+    best = min((v[0] for v in mv.SWEEP_VARIANTS if not v[4]), key=times.get)
+    entry = kernel_entry(
+        "maxsim_variant_scores", "nextplaid_tpu_torch/csrc/maxsim_variants.cu",
+        "scripts/profile_kernel_variants.py:300", launches, err_max, times[best], plain_ms,
+        bound_ms, bound_by)
+    entry.update(
+        library_ms=floor_ms,
+        library_note="one-big-dot floor: bf16 torch.matmul of the same contraction with a "
+                     "per-doc sum; it computes the probe's function, not MaxSim",
+        best_variant=best, variants_ms=times, probe_max_abs_err=err_probe)
+    del qflat, grid, lens, addmask, plain_max, plain_probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry
+
+
+def assert_same_topk(got, want, tol, label):
+    """Score-sorted lists equal up to ties: scores within `tol`, and a doc in
+    only one list must score within `tol` of the other list's last score."""
+    for g, w in zip(got, want):
+        if len(g.passage_ids) != len(w.passage_ids):
+            raise AssertionError(f"{label}: result lengths differ")
+        if not np.allclose(g.scores, w.scores, rtol=tol, atol=tol):
+            raise AssertionError(f"{label}: scores differ beyond {tol}")
+        g_map, w_map = dict(zip(g.passage_ids, g.scores)), dict(zip(w.passage_ids, w.scores))
+        kth = w.scores[-1]
+        for doc in set(g_map) ^ set(w_map):
+            score = g_map.get(doc, w_map.get(doc))
+            if abs(score - kth) > tol * (1 + abs(kth)):
+                raise AssertionError(f"{label}: doc {doc} (score {score}) is in one top-k only")
+
+
+def staged_phase(full, device, mk, batches, queries, oracle):
+    """This slice's main path at full width: staged PLAID search over the
+    full 473,000-doc index, stage 4 through the bf16 MaxSim kernel. Returns
+    the kernel's staged numbers for the kernels line."""
+    from nextplaid_tpu_torch.index import SearchParameters, search_batch, search_batch_async
+    from nextplaid_tpu_torch.index import search as S
+    from nextplaid_tpu_torch.index.config import resolve_target_recall
+
+    kernel = mk.maxsim_grid_scores
+    q_arr, q_mask = S._pad_queries(batches[0], full.dim)
+    q_dev = torch.from_numpy(q_arr).to(device)
+    m_dev = torch.from_numpy(q_mask).to(device)
+    points = [(label, SearchParameters(**STAGED_COMMON, **kw), recorded - RECALL_SLACK)
+              for label, kw, recorded in STAGED_POINTS]
+    points.append(('preset "quality"', SearchParameters.preset("quality", **STAGED_COMMON),
+                   MIN_RECALL_QUALITY))
+    total_launches = 0
+    for label, params, floor in points:
+        resolved = resolve_target_recall(params)
+        search_batch(full, batches[0], params)  # warm-up
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        pass_s, out, pending = [], None, None
+        for _ in range(STAGED_PASSES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pending = [search_batch_async(full, batches[i % len(batches)], params)
+                       for i in range(MEGA_IN_FLIGHT)]
+            out = [p.result() for p in pending]
+            pass_s.append(time.perf_counter() - t0)
+        launches = kernel.launches
+        if launches != STAGED_PASSES * MEGA_IN_FLIGHT:
+            raise AssertionError(f"staged [{label}] launched the bf16 kernel {launches} times in "
+                                 f"{STAGED_PASSES * MEGA_IN_FLIGHT} batches")
+        total_launches += launches
+        check_results(out[0], MEGA_BATCH)
+        shapes = pending[0].shapes
+        if shapes is None or not shapes.rerank_kernel:
+            raise AssertionError(f"staged [{label}] did not take the stage-4 kernel route")
+        overflow = int(pending[0].overflow.max())
+        recall = recall_at_10(out[0], oracle)
+        qps = [MEGA_IN_FLIGHT * MEGA_BATCH / s for s in pass_s]
+        lat = []
+        for q in queries[:5]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            search_batch(full, [q], params)
+            lat.append(1e3 * (time.perf_counter() - t0))
+        # One batch stage by stage, by CUDA events (median of 3 runs).
+        runs = []
+        for _ in range(3):
+            marks = []
+            S.search_pipeline(full, q_dev, m_dev, None, shapes, marks=marks)
+            torch.cuda.synchronize()
+            runs.append({b[0]: a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])})
+        stage = {name: statistics.median(r[name] for r in runs) for name in runs[0]}
+        grid_mib = (-(-shapes.max_candidates // 64) * 64 * shapes.doc_token_cap * full.dim * 2) / 2**20
+        print(f"staged [{label}]: {resolved.approx_score} nprobe {shapes.nprobe} keep "
+              f"{shapes.prune_keep} pool {shapes.prune_pool}, posting budget {shapes.posting_budget}, "
+              f"cmax {shapes.max_candidates}, union grid {grid_mib:.0f} MiB; p50 "
+              f"{statistics.median(qps):.2f} QPS (min {min(qps):.2f}, max {max(qps):.2f}) with "
+              f"{MEGA_IN_FLIGHT} batches x {MEGA_BATCH} in flight; batch-1 p50 "
+              f"{statistics.median(lat):.2f} ms; recall@10 {recall:.4f} (floor {floor:.4f}); overflow "
+              f"{overflow}; per batch ms: stages 1-2 {stage['stage12']:.3f}, 3 {stage['stage3']:.3f}, "
+              f"3b {stage['stage3b']:.3f}, union {stage['union']:.3f}, grid build "
+              f"{stage['stage4_grid']:.3f}, stage-4 kernel {stage['stage4_kernel']:.3f}, 5 "
+              f"{stage['stage5']:.3f}; kernel launches {launches} (one per batch)", flush=True)
+        if recall < floor:
+            raise AssertionError(f"staged [{label}] recall@10 {recall} < {floor}")
+
+    # Once: the scan route (kernel="xla") returns the same top-10.
+    label, kw, _ = STAGED_POINTS[0]
+    by_kernel = search_batch(full, batches[0], SearchParameters(**STAGED_COMMON, **kw))
+    before = kernel.launches
+    by_scan = search_batch(full, batches[0], SearchParameters(kernel="xla", **STAGED_COMMON, **kw))
+    if kernel.launches != before:
+        raise AssertionError('kernel="xla" launched the bf16 kernel')
+    assert_same_topk(by_kernel, by_scan, STAGE4_TOL, f"staged [{label}] kernel vs scan route")
+    print(f"staged [{label}]: the scan route (kernel=\"xla\") returns the same top-10 as the kernel "
+          f"route (tie rule, tolerance {STAGE4_TOL})", flush=True)
+
+    # The kernel alone at the stage-4 shape (the largest union grid), beside
+    # its plain version and its bound.
+    label, kw, _ = STAGED_POINTS[1]
+    params = SearchParameters(**STAGED_COMMON, **kw)
+    shapes = S.PipelineShapes.derive(full, params, MEGA_BATCH, q_arr.shape[1])
+    k = full.num_centroids
+    s_raw = (q_dev.to(torch.bfloat16).float().reshape(-1, full.dim)
+             @ full.centroids.to(torch.bfloat16).float().T).view(MEGA_BATCH, -1, k)
+    s_masked = s_raw.masked_fill(~m_dev[:, :, None], float("-inf"))
+    cells, weights = S._dedup_cells(*S._select_cells(s_masked, m_dev, shapes, k), k)
+    union_ids, _, _ = S._prune_candidates(full, cells, weights, shapes, s_masked=s_masked,
+                                          qmask=m_dev, queries=q_dev)
+    del s_raw, s_masked
+    n_union = int((union_ids < full.num_documents).sum())
+    grid, doclens = S._build_union_grid(full, union_ids, shapes)
+    tq = q_arr.shape[1]
+    qflat = q_dev.reshape(-1, full.dim).to(torch.bfloat16)
+    args = (qflat, grid, doclens, tq)
+    max_err = check_kernel(kernel, mk.maxsim_grid_scores_reference, args,
+                           f"stage-4 union grid {tuple(grid.shape)}, {MEGA_BATCH}q")
+    kernel_ms = time_ms(lambda: kernel(*args), reps=5)
+    plain_ms = time_ms(lambda: mk.maxsim_grid_scores_reference(*args), reps=1)
+    bound_ms, bound_by, dense_ms = maxsim_bound(*args)
+    print(f"stage-4 kernel [{label}]: union {n_union} docs of cmax {shapes.max_candidates}, "
+          f"{int(doclens.sum())} valid tokens; kernel {kernel_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}; {100 * bound_ms / kernel_ms:.1f}% of it), dense-grid bound {dense_ms:.3f} "
+          f"ms, plain version {plain_ms:.3f} ms; staged kernel launches in all {total_launches}",
+          flush=True)
+    return {"staged_launches": total_launches, "staged_max_abs_err": max_err,
+            "staged_ms": kernel_ms, "staged_plain_ms": plain_ms, "staged_bound_ms": bound_ms,
+            "staged_bound_by": bound_by, "staged_shape": list(grid.shape)}
 
 
 def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms, bound_ms, bound_by):
@@ -574,17 +817,21 @@ def main() -> int:
     print(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible", flush=True)
 
-    # Phase 2: build both kernel libraries from the sources in this checkout.
+    # Phase 2: build the three kernel libraries from the sources in this
+    # checkout, one nvcc each, started together.
+    from nextplaid_tpu_torch.ops import maxsim_variants as mv
+
     t0 = time.perf_counter()
     libs = mk.build_all()
     mk._library()
     mk._library_int8()
+    mv._library()
     build_s = time.perf_counter() - t0
     for lib_path in libs.values():
         ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
                  if "Used" in ln]
         print(f"build: {lib_path.name}; {'; '.join(ptxas)}", flush=True)
-    print(f"build: both kernels in {build_s:.2f} s", flush=True)
+    print(f"build: {len(libs)} kernel sources in {build_s:.2f} s", flush=True)
 
     # Phase 3: each kernel vs its plain version on the card.
     for label, args in (("bf16 edge cases", edge_case_inputs(device)),
@@ -595,18 +842,27 @@ def main() -> int:
         check_kernel(mk.maxsim_grid_scores_int8i, mk.maxsim_grid_scores_int8i_reference,
                      args, label)
 
-    # Phases 4-5: SciFact scale, bf16 and int8 pins.
+    # Phase 4: the variant sweep (path B of the third slice).
+    variants = variants_phase(device, mv)
+    # Phases 5-6: SciFact scale, bf16 and int8 pins.
     (bf16, _) = scifact_phases(device, mk)
-    # Phase 6: the slice's main path, grid-only int8 serving at scale.
-    int8 = grid_only_phase(device, mk)
+    # Phases 7-8: grid-only int8 serving at scale, then the third slice's main
+    # path: staged search over the same corpus's full index.
+    int8, staged = grid_only_phase(device, mk)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # Phase 7: the kernels line, then the device line.
+    # Phase 9: the kernels line, then the device line. The bf16 kernel's
+    # launches are the SciFact path's plus the staged path's; its ms, bound and
+    # plain ms are the SciFact pass's, the staged_* keys the stage-4 shape's.
+    bf16_entry = kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
+                              "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:])
+    bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged)
+    bf16_entry["launches"] += staged["staged_launches"]
     print(json.dumps({"kernels": [
-        kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
-                     "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:]),
+        bf16_entry,
         kernel_entry("maxsim_grid_scores_int8i", "nextplaid_tpu_torch/csrc/maxsim_int8.cu",
                      "nextplaid_tpu/ops/maxsim_kernel.py:150", *int8),
+        variants,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

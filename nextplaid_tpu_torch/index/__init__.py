@@ -1,4 +1,4 @@
-"""Index layer: build, device container, exact search."""
+"""Index layer: build, device container, exact and staged search."""
 
 from nextplaid_tpu_torch.index.build import (  # noqa: F401
     create_index,

@@ -108,8 +108,8 @@ class SearchParameters:
     #     each candidate's own token codes and taking the per-query-token
     #     max over those codes' centroid scores. Sharper prune: at megascale
     #     the same recall needs a fraction of the exact-rerank breadth.
-    # DEFAULT "codes" since round 4: the measured 72M frontier
-    # (docs/benchmarks/megascale_codes_frontier.json) has codes >= cells
+    # DEFAULT "codes" since round 4: the JAX package's 72M frontier on a
+    # TPU v5e (docs/benchmarks/megascale_codes_frontier.json) has codes >= cells
     # at matched recall above ~0.95 and strictly dominant at the >=0.99
     # band the reference's defaults target (15.8 QPS @ 0.9953 vs the best
     # cells point 13.7 @ 0.9906) — so the faithful semantics is also the
@@ -166,9 +166,11 @@ class SearchParameters:
     def preset(cls, name: str, **overrides: Any) -> "SearchParameters":
         """Operating-point presets: 'latency' (recall >= 0.92 at max QPS),
         'balanced' (>= 0.97), 'quality' (>= 0.995), 'exact' (exhaustive).
-        Measured points at 72M embeddings: latency -> cells/keep=512
-        (28.4 QPS @ 0.9422), balanced -> cells/keep=1024 (23.4 QPS @
-        0.9781), quality -> codes/keep=512 (15.8 QPS @ 0.9953)."""
+        Points of the JAX package's TPU v5e record at 72M embeddings
+        (MEASURED_FRONTIER_72M; the QPS are that TPU's, not this package's):
+        latency -> cells/keep=512 (28.4 QPS @ 0.9422), balanced ->
+        cells/keep=1024 (23.4 QPS @ 0.9781), quality -> codes/keep=512
+        (15.8 QPS @ 0.9953)."""
         if name not in cls.PRESETS:
             raise ValueError(
                 f"unknown preset {name!r}: expected one of "
@@ -185,10 +187,14 @@ class SearchParameters:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
-# Measured (approx_score, prune_keep) -> (QPS, recall@10) frontier at 72M
-# embeddings, one v5e chip, nprobe=8, batch 64 pipelined. MUST mirror
-# docs/benchmarks/megascale_codes_frontier.json (tests/test_target_recall.py
-# pins them together). Sorted by QPS descending so selection is a scan.
+# (approx_score, prune_keep) -> (QPS, recall@10) frontier at 72M embeddings,
+# nprobe=8, batch 64 pipelined: the JAX package's record on one TPU v5e chip
+# (docs/benchmarks/megascale_codes_frontier.json), copied so that
+# `resolve_target_recall` selects the same operating point in both packages.
+# The QPS column is that TPU record, NOT a time of this package on a GPU: it
+# only ORDERS the points (recall is a property of the algorithm). This
+# package's own times on an H100 are in PERF.md. Sorted by QPS descending so
+# selection is a scan.
 MEASURED_FRONTIER_72M = (
     ("cells", 128, 33.87, 0.8656),
     ("cells", 256, 31.80, 0.9188),

@@ -52,6 +52,23 @@ PAD_TOKENS = 128
 # temporary to GRID_BUILD_TILE * Td * d * 4 bytes (80 MB at Td 304, d 128).
 GRID_BUILD_TILE = 512
 
+# Geometric probe counts for posting_mass_prefix (see DeviceIndex field).
+_MASS_COUNTS = (64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def _posting_mass_prefix(ivf_lengths: np.ndarray) -> Tuple[int, ...]:
+    """Sum of the top-`c` posting lengths for each c in _MASS_COUNTS."""
+    if ivf_lengths is None or len(ivf_lengths) == 0:
+        return ()
+    desc = np.sort(np.asarray(ivf_lengths, np.int64))[::-1]
+    csum = np.cumsum(desc)
+    total = int(csum[-1])
+    return tuple(
+        int(csum[min(c, len(desc)) - 1]) if c <= len(desc) else total
+        for c in _MASS_COUNTS
+    )
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -112,6 +129,13 @@ class DeviceIndex:
     n_emb: int = 0
     nbits: int = 4
     max_doclen: int = 0
+    # Longest posting list: caps the staged pipeline's posting budget.
+    max_posting_len: int = 0
+    # posting_mass_prefix[i] = sum of the _MASS_COUNTS[i] longest posting
+    # lists: a skew-proof upper bound on the posting mass any probe of that
+    # many cells can select, so a posting budget at the bound never
+    # overflows. Empty on grid-only indexes (no IVF).
+    posting_mass_prefix: Tuple[int, ...] = ()
     # Grid-only serving (`load_grid_only`): the IVF is a 0-row placeholder
     # and only exact search over the grid is valid. codes/residuals are
     # 0-row too unless refine="device" kept them resident for the int8
@@ -142,6 +166,18 @@ class DeviceIndex:
     @property
     def num_centroids(self) -> int:
         return self.centroids.shape[0]
+
+    def posting_mass_bound(self, ncells: int) -> Optional[int]:
+        """Upper bound on the posting mass of any `ncells`-cell probe: the
+        sum of the `ncells` longest posting lists (rounded up to the next
+        geometric prefix count). None when the stat is absent or `ncells`
+        exceeds the recorded counts."""
+        if not self.posting_mass_prefix:
+            return None
+        for c, mass in zip(_MASS_COUNTS, self.posting_mass_prefix):
+            if ncells <= c:
+                return mass
+        return None
 
     @property
     def dim(self) -> int:
@@ -323,6 +359,8 @@ class DeviceIndex:
             n_emb=nvec,
             nbits=nbits,
             max_doclen=int(np.max(doclens)) if ndocs else 0,
+            max_posting_len=int(np.max(ivf_lengths)) if nnz else 0,
+            posting_mass_prefix=_posting_mass_prefix(ivf_lengths),
         )
 
     @classmethod
@@ -388,6 +426,10 @@ class DeviceIndex:
                 scale_buckets.append(sb)
         perm = arrays.get("grid_perm")
         bucket_lens = arrays.get("grid_doclens")
+        # Posting statistics as the JAX package derives them at load, here
+        # from the carried CSR offsets (a grid-only index has no IVF).
+        ivf_lengths = np.diff(np.asarray(arrays["ivf_offsets"], np.int64))
+        has_ivf = not grid_only and int(ivf_lengths.sum()) > 0
         return cls(
             **fields,
             token_grid=grid,
@@ -396,6 +438,8 @@ class DeviceIndex:
             n_emb=int(num_embeddings),
             nbits=int(nbits),
             max_doclen=int(max_doclen),
+            max_posting_len=int(ivf_lengths.max()) if has_ivf else 0,
+            posting_mass_prefix=_posting_mass_prefix(ivf_lengths) if has_ivf else (),
             grid_only=bool(grid_only),
             grid_buckets=tuple(buckets),
             scale_buckets=tuple(scale_buckets),

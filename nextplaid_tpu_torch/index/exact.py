@@ -79,6 +79,24 @@ def _finish(scores: torch.Tensor, top_k: int, nd_cap: int):
     return final_ids, final_scores
 
 
+def masked_maxsim_tile(
+    q_flat: torch.Tensor,  # [Q*Tq, d] f32
+    qmask: torch.Tensor,  # [Q, Tq] bool
+    emb: torch.Tensor,  # [n, Td, d] f32
+    lens: torch.Tensor,  # [n] doc lengths (0 for empty docs)
+) -> torch.Tensor:
+    """MaxSim scores [Q, n] of one doc tile: one matmul, max over each doc's
+    first lens[i] tokens, sum over the real query tokens. Empty docs score 0."""
+    q_n, tq = qmask.shape
+    n, td, d = emb.shape
+    sim = (q_flat @ emb.reshape(n * td, d).T).view(q_n, tq, n, td)
+    valid = torch.arange(td, device=emb.device)[None, :] < lens[:, None]  # [n, Td]
+    sim = sim.masked_fill(~valid[None, None], NEG_INF)
+    per_tok = sim.amax(dim=-1)  # [Q, Tq, n]
+    keep = qmask[:, :, None] & torch.isfinite(per_tok)
+    return torch.where(keep, per_tok, torch.zeros_like(per_tok)).sum(dim=1)
+
+
 def exact_all_scores(
     index: DeviceIndex,
     queries: torch.Tensor,
@@ -101,7 +119,7 @@ def exact_all_scores(
     if precision != "highest":
         q_in = q_in.to(torch.bfloat16).float()
     q_flat = q_in.reshape(q_n * tq, d)
-    t_ar = torch.arange(td, device=dev)
+    qmask = qmask.to(dev)
     out = torch.empty(q_n, n_range, dtype=torch.float32, device=dev)
     for start in range(0, n_range, doc_tile):
         ids = torch.arange(start, min(start + doc_tile, n_range), device=dev)
@@ -118,12 +136,7 @@ def exact_all_scores(
             if precision != "highest":
                 emb = emb.to(torch.bfloat16).float()
         lens = torch.where(ids < nd, index.doclens[ids], 0)
-        sim = (q_flat @ emb.reshape(n * td, d).T).view(q_n, tq, n, td)
-        valid = t_ar[None, :] < lens[:, None]  # [n, Td]
-        sim = sim.masked_fill(~valid[None, None], NEG_INF)
-        per_tok = sim.amax(dim=-1)  # [Q, Tq, n]
-        keep = qmask.to(dev)[:, :, None] & torch.isfinite(per_tok)
-        scores = torch.where(keep, per_tok, torch.zeros_like(per_tok)).sum(dim=1)
+        scores = masked_maxsim_tile(q_flat, qmask, emb, lens)
         out[:, start : start + n] = torch.where(
             (ids < nd)[None, :], scores, torch.full_like(scores, NEG_INF)
         )

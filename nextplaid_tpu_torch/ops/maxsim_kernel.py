@@ -6,6 +6,8 @@ Two kernels, each replacing a Pallas kernel of
   - csrc/maxsim_bf16.cu: `maxsim_grid_scores` / `_kernel` (bf16 grid);
   - csrc/maxsim_int8.cu: `maxsim_grid_scores_int8i` / `_kernel_int8i`
     (int8 grid with per-token dequant scales).
+This module also builds the third source, csrc/maxsim_variants.cu (the
+variant sweep's kernel family; its wrapper is `ops.maxsim_variants`).
 Both are compute-bound on an H100 at the main paths' shapes; each source's
 header says what its design does about that.
 
@@ -52,7 +54,8 @@ import torch.nn.functional as F
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCE = CSRC / "maxsim_bf16.cu"
 SOURCE_INT8 = CSRC / "maxsim_int8.cu"
-SOURCES = (SOURCE, SOURCE_INT8)
+SOURCE_VARIANTS = CSRC / "maxsim_variants.cu"  # wrapper: ops/maxsim_variants.py
+SOURCES = (SOURCE, SOURCE_INT8, SOURCE_VARIANTS)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nextplaid_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

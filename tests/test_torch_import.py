@@ -42,7 +42,8 @@ def _imported_roots(path):
 def test_import_leaves_jax_out():
     code = (
         "import sys, nextplaid_tpu_torch, nextplaid_tpu_torch.index, "
-        "nextplaid_tpu_torch.ops, nextplaid_tpu_torch.ops.maxsim_kernel\n"
+        "nextplaid_tpu_torch.ops, nextplaid_tpu_torch.ops.maxsim_kernel, "
+        "nextplaid_tpu_torch.ops.maxsim_variants, nextplaid_tpu_torch.index.search\n"
         "bad = [m for m in sys.modules if m in ('jax', 'nextplaid_tpu') or "
         "m.startswith(('jax.', 'nextplaid_tpu.'))]\n"
         "print(bad)\n"

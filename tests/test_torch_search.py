@@ -21,12 +21,16 @@ import nextplaid_tpu.index as J
 from nextplaid_tpu.index.search import _pad_queries as jax_pad_queries
 from nextplaid_tpu_torch.index import (
     DeviceIndex,
+    IndexConfig,
     SearchParameters,
+    create_index,
+    load_grid_only,
     search_batch,
     search_batch_async,
     search_one,
 )
 from nextplaid_tpu_torch.index.search import _pad_queries
+from nextplaid_tpu_torch.utils.errors import SearchError
 
 RTOL, ATOL = 1e-5, 1e-4
 FAST = dict(top_k=10, stage1_precision="default")
@@ -185,14 +189,25 @@ def test_pad_queries_matches_jax():
         np.testing.assert_array_equal(got, want)
 
 
-def test_unported_routes_raise(built):
-    path, _, queries, ref, _ = built
+def test_unported_routes_raise(built, tmp_path):
+    """What still raises (an RQ build, staged search on a grid-only index),
+    and what no longer does: staged mode answers."""
+    path, docs, queries, ref, _ = built
     index = DeviceIndex.load(path, device="cpu")
-    staged = SearchParameters(mode="auto", exact_max_embeddings=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search_batch(index, queries, staged)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search_batch(index, queries, dataclasses.replace(staged, mode="staged"))
+    staged = SearchParameters(mode="auto", exact_max_embeddings=0,
+                              stage1_precision="highest")
+    exact = search_batch(index, queries, SearchParameters(**ORACLE))
+    for params in (staged, dataclasses.replace(staged, mode="staged")):
+        # Default prune_keep exceeds this corpus, so every probed doc is
+        # scored exactly: the staged top-10 holds the exact top-1.
+        got = search_batch(index, queries, params)
+        assert [r.passage_ids[0] for r in got] == [r.passage_ids[0] for r in exact]
+    with pytest.raises(NotImplementedError, match="rq"):
+        create_index(docs[:8], str(tmp_path / "rq"),
+                     IndexConfig(nbits=4, centroid_structure="rq"), device="cpu")
+    grid_only = load_grid_only(path, dtype="bf16", buckets=1, device="cpu")
+    with pytest.raises(SearchError, match="grid-only"):
+        search_batch(grid_only, queries, dataclasses.replace(staged, mode="staged"))
     # Over budget: unpinned, as in the JAX package.
     assert index.with_token_grid(budget_mb=0, dtype="bf16").token_grid is None
     # The JAX package's int8 grid (token-interleaved) carries across.
