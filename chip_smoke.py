@@ -2,13 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernel sources (bf16 MaxSim, int8 MaxSim, the MaxSim
-variant family) from this checkout, one nvcc each, at once, and holds each
-kernel against its plain PyTorch version on the card. Then drives the port's
-paths:
+Builds the three CUDA kernel sources (bf16 MaxSim and int8 MaxSim, both on
+the wgmma/TMA design of csrc/maxsim_wgmma.cuh, and the MaxSim variant
+family) from this checkout, one nvcc each, at once, fails on a
+serialized-wgmma warning in the build logs, and holds each kernel against
+its plain PyTorch version on the card: the edge cases, a main-path slice and
+the shapes a 64-row tiling can get wrong (TILING_CASES). Then drives the
+port's paths:
   1. the variant sweep of scripts/profile_torch_kernel_variants.py (5,184
      docs x Td 384 x d 128, 64 queries x 32 tokens): every variant checked
-     and timed beside the one-big-dot floor and the bound;
+     and timed beside the one-big-dot floor and the bound, and the served
+     bf16 kernel timed once at the same shape;
   2. SciFact scale (5,183 docs, doclens 64-300, ~1.5M tokens, d 128,
      nbits 4, 16,384 centroids): a corpus made on the card from a seed,
      `create_index_from_device`, `DeviceIndex.load`,
@@ -171,6 +175,22 @@ def maxsim_bound_int8(qi8, grids, scales, q_n):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def tile_waste(lens):
+    """Share of the rows a 64-row tiling multiplies that lie at or past the
+    docs' lengths (`lens`: a tensor or array of row bounds, one a doc)."""
+    lens = torch.as_tensor(lens).to(torch.int64)
+    walked = int(((lens + 63) // 64 * 64).sum())
+    return 1.0 - int(lens.sum()) / max(walked, 1)
+
+
+def int8_row_bounds(scales):
+    """1 + the last token with a positive scale, per doc: where the int8
+    kernel stops walking a doc."""
+    valid = scales.float() > 0
+    idx = torch.arange(1, scales.shape[1] + 1, device=scales.device)
+    return (valid * idx).amax(dim=1)
+
+
 def check_kernel(kernel, plain, args, label):
     """Kernel vs plain version on the same inputs; returns max |diff|."""
     got = kernel(*args)
@@ -267,6 +287,71 @@ def int8_slice_inputs(device):
     emb = torch.where(valid[:, :, None], emb / emb.norm(dim=2, keepdim=True), 0.0)
     grid, scales = quantize_tokens_int8(emb, valid)
     return qi8, qs, grid, scales, 32
+
+
+# Shapes the served kernels' 64-row tiling can get wrong, as
+# (label, q_n, tq, nd, td, d, lens): lens is a list of doc lengths (cycled
+# over nd, the last doc always full) or None for random lengths. Both types.
+TILING_CASES = (
+    ("lens 63/64/65/128/Td, Td 200, nd 13", 3, 32, 13, 200, 128, [63, 64, 65, 128, 200, 0, 1, 199, 129, 127]),
+    ("nd 1, one query", 1, 32, 1, 72, 128, [72]),
+    ("nd 1 empty", 2, 32, 1, 64, 128, [0]),
+    ("8 columns", 1, 8, 37, 96, 128, None),
+    ("16 columns", 1, 16, 37, 96, 128, None),
+    ("24 columns", 1, 24, 37, 96, 128, None),
+    ("40 columns", 1, 40, 37, 96, 128, None),
+    ("544 columns (above 512), nd 70", 17, 32, 70, 136, 128, None),
+    ("odd query groups: 24 queries", 24, 32, 33, 304, 128, None),
+    ("tq 200: one query a warpgroup", 3, 200, 19, 100, 128, None),
+    ("tq 48: queries do not fill N", 11, 48, 21, 80, 128, None),
+    ("d 64", 5, 32, 29, 130, 64, None),
+    ("d 48 (padded)", 5, 32, 29, 70, 48, None),
+    ("d 256", 9, 32, 29, 130, 256, None),
+    ("d 256, tq 130", 2, 130, 9, 66, 256, None),
+)
+
+
+def tiling_case_arrays(case, seed=11):
+    """numpy inputs of one TILING_CASES entry: queries [q_n*tq, d] f32 (the
+    last 3 tokens of each query zero: padding), grid [nd, td, d] f32 (zero
+    at and past each doc's length), lens [nd] int32."""
+    _, q_n, tq, nd, td, d, lens = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((q_n, tq, d)).astype(np.float32)
+    q[:, max(tq - 3, 1):] = 0.0
+    grid = rng.standard_normal((nd, td, d)).astype(np.float32)
+    if lens is None:
+        lens = rng.integers(0, td + 1, nd)
+    lens = np.resize(np.asarray(lens), nd).astype(np.int32)
+    lens[-1] = td if nd > 1 or lens[-1] > 0 else 0  # the grid's last doc is full
+    for i in range(nd):
+        grid[i, lens[i]:] = 0.0
+    return q.reshape(q_n * tq, d), grid, lens
+
+
+def tiling_case_bf16(case, device):
+    """Arguments of `maxsim_grid_scores` for one tiling case."""
+    q, grid, lens = tiling_case_arrays(case)
+    to = lambda x, dt: torch.from_numpy(x).to(device, dt)
+    return to(q, torch.bfloat16), to(grid, torch.bfloat16), to(lens, torch.int32), case[2]
+
+
+def tiling_case_int8(case, device):
+    """Arguments of `maxsim_grid_scores_int8i` for one tiling case: int8
+    values, positive scales below each doc's length except every fifth
+    token, which is invalid (scale 0) with valid tokens after it."""
+    _, q_n, tq, nd, td, d, _ = case
+    q, grid, lens = tiling_case_arrays(case)
+    rng = np.random.default_rng(12)
+    qi8 = np.clip(np.rint(q * 40), -127, 127).astype(np.int8)
+    qs = rng.uniform(0.002, 0.01, q_n * tq).astype(np.float32)
+    qs[np.all(qi8 == 0, axis=1)] = 0.0
+    gi8 = np.clip(np.rint(grid * 40), -127, 127).astype(np.int8)
+    sc = rng.uniform(0.002, 0.01, (nd, td)).astype(np.float32)
+    sc[np.arange(td)[None, :] >= lens[:, None]] = 0.0
+    sc[:, 3::5] = 0.0
+    return (torch.from_numpy(qi8).to(device), torch.from_numpy(qs).to(device),
+            torch.from_numpy(gi8).to(device), torch.from_numpy(sc).to(device, torch.bfloat16), tq)
 
 
 def mega_corpus(device, n_docs=MEGA_DOCS, dim=128, seed=0):
@@ -413,14 +498,15 @@ def scifact_phases(device, mk):
                 doclens_g[: index.num_docs_padded] = index.doclens
                 args = (qflat, grid, doclens_g, tq)
                 bound_ms, bound_by, dense_ms = maxsim_bound(qflat, grid, doclens_g, tq)
-                extra = f", dense-grid bound {dense_ms:.3f} ms"
+                extra = (f", dense-grid bound {dense_ms:.3f} ms, tile waste "
+                         f"{100 * tile_waste(doclens_g):.1f}%")
             else:
                 plain = mk.maxsim_grid_scores_int8i_reference
                 qi8, qs = quantize_queries_int8(q_dev)
                 args = (qi8, qs, pinned.token_grid, pinned.token_scales, tq)
                 bound_ms, bound_by = maxsim_bound_int8(
                     qi8, [pinned.token_grid], [pinned.token_scales], NUM_QUERIES)
-                extra = ""
+                extra = f", tile waste {100 * tile_waste(int8_row_bounds(pinned.token_scales)):.1f}%"
             max_err = check_kernel(kernel, plain, args,
                                    f"{label} path {NUM_QUERIES}q x {args[-3].shape[0]} rows")
             kernel_ms = time_ms(lambda: kernel(*args), reps=20)
@@ -539,6 +625,7 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
         plain_ms = time_ms(lambda: [mk.maxsim_grid_scores_int8i_reference(qi8, qs, g, s, tq)
                                     for g, s in zip(grids, scales)], reps=1)
         bound_ms, bound_by = maxsim_bound_int8(qi8, grids, scales, MEGA_BATCH)
+        waste = tile_waste(torch.cat([int8_row_bounds(s) for s in scales]))
         bounds = torch.cumsum(torch.tensor([0] + [g.shape[0] for g in grids]), 0).tolist()
         perms = [go.grid_perm[bounds[b] : bounds[b + 1]] for b in range(len(grids))]
         blocks = [kernel(qi8, qs, g, s, tq) for g, s in zip(grids, scales)]
@@ -551,7 +638,7 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
               f"max {max(qps):.2f}); wall {1e3 * statistics.median(pass_s) / MEGA_IN_FLIGHT:.2f} "
               f"ms/batch; batch-1 p50 {statistics.median(lat):.2f} ms; per 64-query batch: int8 "
               f"kernel {kernel_ms:.3f} ms over {len(grids)} buckets, bound {bound_ms:.3f} ms "
-              f"({bound_by}; {100 * bound_ms / kernel_ms:.1f}% of it), top-{depth} finalize "
+              f"({bound_by}; {100 * bound_ms / kernel_ms:.1f}% of it; tile waste {100 * waste:.1f}%), top-{depth} finalize "
               f"{finalize_ms:.3f} ms, refine {refine_ms:.3f} ms; plain version {plain_ms:.3f} ms; "
               f"kernel launches {launches}", flush=True)
         del go, grids, scales, blocks, cand, perms
@@ -582,7 +669,7 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
 
-def variants_phase(device, mv):
+def variants_phase(device, mv, mk):
     """The variant sweep at its shape: every variant of csrc/maxsim_variants.cu
     against its plain version, then timed beside the one-big-dot floor and the
     bound. Returns the family's entry of the kernels line."""
@@ -648,6 +735,17 @@ def variants_phase(device, mv):
         print(f"  variant {name:18s} {ms:8.3f} ms  ({100 * bound_ms / ms:5.1f}% of the bound, "
               f"{ms / floor_ms:5.2f} x the floor)", flush=True)
     best = min((v[0] for v in mv.SWEEP_VARIANTS if not v[4]), key=times.get)
+    # The served bf16 kernel at the sweep's shape, beside the best variant.
+    served = mk.maxsim_grid_scores(qflat, grid, lens, tq)  # [Q, ND]; the variants give [ND, Q]
+    torch.cuda.synchronize()
+    served_err = float((served.T - plain_max).abs().max())
+    tol = KERNEL_RTOL * max(float(plain_max.abs().max()), 1.0)
+    if not served_err <= tol:
+        raise AssertionError(f"bf16 kernel at the sweep's shape disagrees: {served_err} > {tol}")
+    served_ms = time_ms(lambda: mk.maxsim_grid_scores(qflat, grid, lens, tq), reps=10)
+    print(f"served bf16 kernel at the sweep's shape: {served_ms:.3f} ms ({100 * bound_ms / served_ms:.1f}% "
+          f"of the bound; best variant {best} {times[best]:.3f} ms); max|kernel - plain| = "
+          f"{served_err:.3e}", flush=True)
     entry = kernel_entry(
         "maxsim_variant_scores", "nextplaid_tpu_torch/csrc/maxsim_variants.cu",
         "scripts/profile_kernel_variants.py:300", launches, err_max, times[best], plain_ms,
@@ -656,7 +754,8 @@ def variants_phase(device, mv):
         library_ms=floor_ms,
         library_note="one-big-dot floor: bf16 torch.matmul of the same contraction with a "
                      "per-doc sum; it computes the probe's function, not MaxSim",
-        best_variant=best, variants_ms=times, probe_max_abs_err=err_probe)
+        best_variant=best, variants_ms=times, probe_max_abs_err=err_probe,
+        served_bf16_ms_at_sweep_shape=served_ms)
     del qflat, grid, lens, addmask, plain_max, plain_probe
     gc.collect()
     torch.cuda.empty_cache()
@@ -785,7 +884,8 @@ def staged_phase(full, device, mk, batches, queries, oracle):
     bound_ms, bound_by, dense_ms = maxsim_bound(*args)
     print(f"stage-4 kernel [{label}]: union {n_union} docs of cmax {shapes.max_candidates}, "
           f"{int(doclens.sum())} valid tokens; kernel {kernel_ms:.3f} ms, bound {bound_ms:.3f} ms "
-          f"({bound_by}; {100 * bound_ms / kernel_ms:.1f}% of it), dense-grid bound {dense_ms:.3f} "
+          f"({bound_by}; {100 * bound_ms / kernel_ms:.1f}% of it; tile waste "
+          f"{100 * tile_waste(doclens.clamp(max=grid.shape[1])):.1f}%), dense-grid bound {dense_ms:.3f} "
           f"ms, plain version {plain_ms:.3f} ms; staged kernel launches in all {total_launches}",
           flush=True)
     return {"staged_launches": total_launches, "staged_max_abs_err": max_err,
@@ -828,9 +928,12 @@ def main() -> int:
     mv._library()
     build_s = time.perf_counter() - t0
     for lib_path in libs.values():
-        ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
-                 if "Used" in ln]
+        log = lib_path.with_suffix(".log").read_text().splitlines()
+        ptxas = [ln.strip() for ln in log if "Used" in ln]
         print(f"build: {lib_path.name}; {'; '.join(ptxas)}", flush=True)
+        serialized = [ln.strip() for ln in log if "serialized" in ln]
+        if serialized:
+            raise AssertionError(f"{lib_path.name}: ptxas serialized wgmma: {serialized[0]}")
     print(f"build: {len(libs)} kernel sources in {build_s:.2f} s", flush=True)
 
     # Phase 3: each kernel vs its plain version on the card.
@@ -841,9 +944,14 @@ def main() -> int:
                         ("int8 main-path slice 64q x 512 docs", int8_slice_inputs(device))):
         check_kernel(mk.maxsim_grid_scores_int8i, mk.maxsim_grid_scores_int8i_reference,
                      args, label)
+    for case in TILING_CASES:
+        check_kernel(mk.maxsim_grid_scores, mk.maxsim_grid_scores_reference,
+                     tiling_case_bf16(case, device), f"bf16 tiling: {case[0]}")
+        check_kernel(mk.maxsim_grid_scores_int8i, mk.maxsim_grid_scores_int8i_reference,
+                     tiling_case_int8(case, device), f"int8 tiling: {case[0]}")
 
     # Phase 4: the variant sweep (path B of the third slice).
-    variants = variants_phase(device, mv)
+    variants = variants_phase(device, mv, mk)
     # Phases 5-6: SciFact scale, bf16 and int8 pins.
     (bf16, _) = scifact_phases(device, mk)
     # Phases 7-8: grid-only int8 serving at scale, then the third slice's main

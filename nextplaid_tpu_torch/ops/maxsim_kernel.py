@@ -6,10 +6,18 @@ Two kernels, each replacing a Pallas kernel of
   - csrc/maxsim_bf16.cu: `maxsim_grid_scores` / `_kernel` (bf16 grid);
   - csrc/maxsim_int8.cu: `maxsim_grid_scores_int8i` / `_kernel_int8i`
     (int8 grid with per-token dequant scales).
+Both include csrc/maxsim_wgmma.cuh, the one design they share: wgmma
+products on 64-row doc tiles, fed by a ring of TMA loads that mbarriers
+hand from one producer thread to two consumer warpgroups, each with its own
+block of query-token columns, the per-doc max taken in registers. Both are
+bound by operations on an H100 at the main paths' shapes (one query against
+the int8 grid by bytes); each source's note says what the design does about
+that. `plan_launch` picks, in Python, what the launch needs: the columns a
+warpgroup owns (from the columns the call really has), one or two
+warpgroups, the docs a block walks and the ring's depth within the shared
+memory a block may use.
 This module also builds the third source, csrc/maxsim_variants.cu (the
 variant sweep's kernel family; its wrapper is `ops.maxsim_variants`).
-Both are compute-bound on an H100 at the main paths' shapes; each source's
-header says what its design does about that.
 
 bf16 layout contract (as the JAX package's, with doclens flat):
   queries_flat [Q*Tq, d] bf16, padded query tokens are zero rows, so they
@@ -33,7 +41,8 @@ m_t = max over valid j of float(<q_i8_t, grid_i8[n, j]>) * scales[n, j]
 `maxsim_grid_scores` and `maxsim_grid_scores_int8i` run the plain version
 for CPU tensors and launch their kernel for CUDA tensors; a failed build or
 launch raises. Each kernel's library is compiled with nvcc at first use into
-build/nextplaid_tpu_torch/ and loaded with ctypes.
+build/nextplaid_tpu_torch/ and loaded with ctypes; a library is rebuilt when
+its source, a header it includes or the flags change.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import os
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict
 
@@ -56,6 +66,9 @@ SOURCE = CSRC / "maxsim_bf16.cu"
 SOURCE_INT8 = CSRC / "maxsim_int8.cu"
 SOURCE_VARIANTS = CSRC / "maxsim_variants.cu"  # wrapper: ops/maxsim_variants.py
 SOURCES = (SOURCE, SOURCE_INT8, SOURCE_VARIANTS)
+HEADER_WGMMA = CSRC / "maxsim_wgmma.cuh"
+# Headers each source includes: their bytes are part of its build hash.
+HEADERS = {SOURCE: (HEADER_WGMMA,), SOURCE_INT8: (HEADER_WGMMA,), SOURCE_VARIANTS: ()}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nextplaid_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -63,8 +76,18 @@ NVCC_FLAGS = (
 )
 MAX_TQ = 256
 MAX_DIM = 256
-MAX_DOCS = 65535 * 8  # grid.y limit times the bf16 kernel's 8 docs per block
-INT8_DIMS = (32, 64, 128, 256)  # the int8 kernel's dims; others are padded
+MAX_DOCS = 65535 * 8  # grid rows of one bf16 launch; callers chunk above it
+BF16_DIM_STEP = 64  # the bf16 kernel's dims are its multiples; others are padded
+INT8_DIMS = (128, 256)  # the int8 kernel's dims; others are padded
+# The launch plan's constants, as in csrc/maxsim_wgmma.cuh.
+WGMMA_COLS = (32, 64, 128, 256)  # query-token columns of one warpgroup
+CONSUMERS = 2  # consumer warpgroups of a block
+TILE_ROWS = 64
+PANEL_BYTES = 128
+MAX_STAGES = 8
+MAX_DOCS_PER_BLOCK = 32
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
+SM_COUNT = 132
 NEG = -1e30  # the int8 kernels' mask value (the Pallas kernel's NEG)
 
 
@@ -79,13 +102,20 @@ def _nvcc() -> str:
     return found
 
 
+def build_tag(source: Path) -> str:
+    """Content hash of a source, the headers it includes and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in HEADERS.get(source, ()):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def build_library(source: Path = SOURCE) -> Path:
-    """Compile one kernel source into a shared library (once per source and
-    flags; the build log beside it holds ptxas' register and shared memory
-    report). Returns the library's path."""
-    tag = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
+    """Compile one kernel source into a shared library (once per source,
+    headers and flags; the build log beside it holds ptxas' register and
+    shared memory report). Returns the library's path."""
+    tag = build_tag(source)
     lib = BUILD_DIR / f"{source.stem}-{tag}.so"
     if lib.exists():
         return lib
@@ -118,8 +148,10 @@ def build_all() -> Dict[str, Path]:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(SOURCE)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.maxsim_bf16_scores.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.maxsim_bf16_scores.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.maxsim_bf16_scores.restype = i
+    lib.maxsim_bf16_smem_bytes.argtypes = [i, i, i, i]
+    lib.maxsim_bf16_smem_bytes.restype = i
     lib.maxsim_bf16_error_string.argtypes = [i]
     lib.maxsim_bf16_error_string.restype = ctypes.c_char_p
     return lib
@@ -129,11 +161,88 @@ def _library() -> ctypes.CDLL:
 def _library_int8() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(SOURCE_INT8)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.maxsim_int8_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.maxsim_int8_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.maxsim_int8_scores.restype = i
+    lib.maxsim_int8_smem_bytes.argtypes = [i, i, i, i]
+    lib.maxsim_int8_smem_bytes.restype = i
     lib.maxsim_int8_error_string.argtypes = [i]
     lib.maxsim_int8_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """What one launch of a MaxSim kernel needs beyond its tensors."""
+
+    n: int  # query-token columns a consumer warpgroup owns (a wgmma N)
+    n_wg: int  # warpgroups (query groups) a block takes: 1 or 2
+    qpw: int  # whole queries a warpgroup owns: n // tq
+    dpb: int  # docs a block walks
+    stages: int  # 64-row tiles in the shared-memory ring
+    panels: int  # 128-byte panels of a row
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def smem_bytes(n: int, n_wg: int, panels: int, stages: int, scales: bool) -> int:
+    """Dynamic shared memory of one block (csrc/maxsim_wgmma.cuh's
+    `smem_layout`): the query columns, the tile ring (with 64 bf16 scales a
+    tile for int8), the per-warp and per-column maxima (and the query
+    scales for int8), the docs' lengths, the mbarriers, 1,024 bytes to align."""
+    total = n_wg * panels * n * PANEL_BYTES
+    total += stages * panels * TILE_ROWS * PANEL_BYTES
+    total += stages * TILE_ROWS * 2 if scales else 0
+    total += CONSUMERS * 4 * n * 4 + CONSUMERS * n * 4
+    total += CONSUMERS * n * 4 if scales else 0
+    total += MAX_DOCS_PER_BLOCK * 4 + (2 * MAX_STAGES + 1) * 8
+    return total + 1024
+
+
+def plan_launch(q_n: int, tq: int, nd: int, row_bytes: int, scales: bool) -> LaunchPlan:
+    """Pick the kernel instance and block shape for `q_n` queries of `tq`
+    tokens against `nd` grid rows of `row_bytes` bytes (a multiple of 128).
+
+    A warpgroup owns n >= tq columns holding n // tq whole queries, a block
+    one or two such groups. Of the shapes whose ring has at least 2 stages
+    in shared memory, the narrowest that holds every query wins (one query
+    does not pay for 512 columns), two warpgroups before one; if none holds
+    them all, the one that holds the most. Shapes of up to 64 columns keep
+    to half an SM's shared memory, so that two blocks share it and a call
+    with few columns still keeps many tiles in flight. The docs a block
+    walks start at 16 and halve until the launch has four blocks an SM or
+    one doc a block."""
+    if row_bytes <= 0 or row_bytes % PANEL_BYTES:
+        raise ValueError(f"row bytes {row_bytes} must be a multiple of {PANEL_BYTES}")
+    if not 0 < tq <= WGMMA_COLS[-1]:
+        raise ValueError(f"tq={tq} must be in 1..{WGMMA_COLS[-1]}")
+    panels = row_bytes // PANEL_BYTES
+    stage = panels * TILE_ROWS * PANEL_BYTES + (TILE_ROWS * 2 if scales else 0)
+    shapes = []
+    for n in WGMMA_COLS:
+        for n_wg in (2, 1):
+            # The narrow instances are built for two blocks an SM.
+            limit = SMEM_LIMIT if n > 64 else SMEM_LIMIT // 2 - 1024
+            free = limit - smem_bytes(n, n_wg, panels, 0, scales)
+            stages = min(MAX_STAGES, free // stage)
+            if n >= tq and stages >= 2:
+                shapes.append((n, n_wg, stages))
+    if not shapes:
+        raise ValueError(f"no kernel shape fits tq={tq} at {row_bytes} bytes a row")
+    holding = [s for s in shapes if s[1] * (s[0] // tq) >= q_n]
+    if holding:
+        n, n_wg, stages = min(holding, key=lambda s: (s[0] * s[1], -s[1]))
+    else:
+        n, n_wg, stages = max(shapes, key=lambda s: (s[1] * (s[0] // tq), s[1], s[2]))
+    qpw = n // tq
+    n_qblocks = _ceil_div(_ceil_div(q_n, qpw), n_wg)
+    dpb = 16
+    while dpb > 1 and n_qblocks * _ceil_div(nd, dpb) < 4 * SM_COUNT:
+        dpb //= 2
+    return LaunchPlan(n=n, n_wg=n_wg, qpw=qpw, dpb=dpb, stages=stages, panels=panels,
+                      smem=smem_bytes(n, n_wg, panels, stages, scales))
 
 
 def maxsim_grid_scores_reference(
@@ -198,6 +307,17 @@ def _check_cuda_inputs(queries_flat, grid_tokens, doclens, tq) -> None:
         raise ValueError(f"{nd} grid rows exceed the kernel's {MAX_DOCS}")
 
 
+def pad_bf16_inputs(queries_flat, grid_tokens):
+    """The bf16 kernel takes d in multiples of 64 (whole 128-byte panels):
+    pad other d with zero features, which add exactly 0 to every product.
+    Returns (queries, grid), the inputs themselves when nothing is padded."""
+    d = grid_tokens.shape[2]
+    d_k = -(-d // BF16_DIM_STEP) * BF16_DIM_STEP
+    if d_k == d:
+        return queries_flat, grid_tokens
+    return F.pad(queries_flat, (0, d_k - d)), F.pad(grid_tokens, (0, d_k - d))
+
+
 def _launch(queries_flat, grid_tokens, doclens, tq) -> torch.Tensor:
     qf, d = queries_flat.shape
     nd, td, _ = grid_tokens.shape
@@ -205,20 +325,16 @@ def _launch(queries_flat, grid_tokens, doclens, tq) -> torch.Tensor:
     out = torch.empty(q_n, nd, dtype=torch.float32, device=grid_tokens.device)
     if q_n == 0 or nd == 0:
         return out
-    # The kernel takes tq in multiples of 16: pad each query with zero
-    # token rows, which add exactly 0 to its scores.
-    tq16 = -(-tq // 16) * 16
-    if tq16 != tq:
-        queries_flat = F.pad(
-            queries_flat.view(q_n, tq, d), (0, 0, 0, tq16 - tq)
-        ).reshape(q_n * tq16, d)
+    queries_flat, grid_tokens = pad_bf16_inputs(queries_flat, grid_tokens)
+    d_k = grid_tokens.shape[2]
+    plan = plan_launch(q_n, tq, nd, d_k * 2, scales=False)
     lib = _library()
     with torch.cuda.device(grid_tokens.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.maxsim_bf16_scores(
             queries_flat.data_ptr(), grid_tokens.data_ptr(),
             doclens.data_ptr(), out.data_ptr(),
-            q_n, tq16, nd, td, d, stream,
+            q_n, tq, nd, td, d_k, plan.n, plan.n_wg, plan.dpb, plan.stages, stream,
         )
     if err != 0:
         msg = lib.maxsim_bf16_error_string(err).decode()
@@ -315,6 +431,20 @@ def _check_cuda_inputs_int8(queries_i8, qscales, grid_i8, scales, tq) -> None:
         raise ValueError(f"scales shape {tuple(scales.shape)} != ({nd}, {td})")
 
 
+def pad_int8_inputs(queries_i8, grid_i8, scales):
+    """The int8 kernel takes d 128 or 256 and Td in multiples of 8 (16-byte
+    rows of scales): pad with zero features and zero-scale doc tokens, which
+    add exactly 0 and mask nothing real. Returns (queries, grid, scales),
+    the inputs themselves when nothing is padded."""
+    _, td, d = grid_i8.shape
+    d_k = next(x for x in INT8_DIMS if x >= d)
+    td8 = -(-td // 8) * 8
+    if d_k == d and td8 == td:
+        return queries_i8, grid_i8, scales
+    return (F.pad(queries_i8, (0, d_k - d)), F.pad(grid_i8, (0, d_k - d, 0, td8 - td)),
+            F.pad(scales, (0, td8 - td)))
+
+
 def _launch_int8(queries_i8, qscales, grid_i8, scales, tq) -> torch.Tensor:
     qf, d = queries_i8.shape
     nd, td, _ = grid_i8.shape
@@ -322,27 +452,16 @@ def _launch_int8(queries_i8, qscales, grid_i8, scales, tq) -> torch.Tensor:
     out = torch.empty(q_n, nd, dtype=torch.float32, device=grid_i8.device)
     if q_n == 0 or nd == 0:
         return out
-    # The kernel takes d in {32, 64, 128, 256}, tq in multiples of 8 and Td
-    # in multiples of 4: pad with zero features, zero-scale query tokens and
-    # zero-scale doc tokens, which add exactly 0 and mask nothing real.
-    d_k = next(x for x in INT8_DIMS if x >= d)
-    td4 = -(-td // 4) * 4
-    if d_k != d or td4 != td:
-        queries_i8 = F.pad(queries_i8, (0, d_k - d))
-        grid_i8 = F.pad(grid_i8, (0, d_k - d, 0, td4 - td))
-        scales = F.pad(scales, (0, td4 - td))
-    tq8 = -(-tq // 8) * 8
-    if tq8 != tq:
-        queries_i8 = F.pad(
-            queries_i8.view(q_n, tq, d_k), (0, 0, 0, tq8 - tq)
-        ).reshape(q_n * tq8, d_k)
-        qscales = F.pad(qscales.view(q_n, tq), (0, tq8 - tq)).reshape(-1)
+    queries_i8, grid_i8, scales = pad_int8_inputs(queries_i8, grid_i8, scales)
+    _, td8, d_k = grid_i8.shape
+    plan = plan_launch(q_n, tq, nd, d_k, scales=True)
     lib = _library_int8()
     with torch.cuda.device(grid_i8.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.maxsim_int8_scores(
             queries_i8.data_ptr(), qscales.data_ptr(), grid_i8.data_ptr(),
-            scales.data_ptr(), out.data_ptr(), q_n, tq8, nd, td4, d_k, stream,
+            scales.data_ptr(), out.data_ptr(), q_n, tq, nd, td8, d_k,
+            plan.n, plan.n_wg, plan.dpb, plan.stages, stream,
         )
     if err != 0:
         msg = lib.maxsim_int8_error_string(err).decode()

@@ -11,21 +11,29 @@ tests run where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_int8_kernel.py
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from nextplaid_tpu_torch.index.container import (
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402  (TILING_CASES and their inputs; imports no JAX)
+from nextplaid_tpu_torch.index.container import (  # noqa: E402
     int8_grid_from_interleaved,
     int8_grid_to_interleaved,
 )
-from nextplaid_tpu_torch.index.exact import quantize_queries_int8
-from nextplaid_tpu_torch.ops.maxsim_kernel import (
+from nextplaid_tpu_torch.index.exact import quantize_queries_int8  # noqa: E402
+from nextplaid_tpu_torch.ops import maxsim_kernel  # noqa: E402
+from nextplaid_tpu_torch.ops.maxsim_kernel import (  # noqa: E402
     maxsim_grid_scores_int8i,
     maxsim_grid_scores_int8i_reference,
 )
 
 RTOL = 1e-5  # of max|score|
+TILING_IDS = [case[0] for case in chip_smoke.TILING_CASES]
 
 
 def _bf16_values(x):
@@ -106,6 +114,61 @@ def test_plain_version_matches_jax_interpret(q_n, tq, nd, td, d):
     assert np.isfinite(got).all()
 
 
+@pytest.mark.parametrize("case", chip_smoke.TILING_CASES, ids=TILING_IDS)
+def test_tiling_cases_plain_version_matches_jax_interpret(case):
+    """The shapes a 64-row tiling can get wrong, each with invalid tokens
+    (scale 0) before valid ones, plain version against the Pallas kernel in
+    interpret mode: sums to 1e-5 x max|score|. The Pallas kernel takes docs
+    in groups of 128 and Td in multiples of 32 (as the JAX package pins its
+    grids), so its grid is padded with zero-scale tokens and with docs that
+    have no valid token, whose columns are dropped."""
+    q, qs, grid, scales, tq = chip_smoke.tiling_case_int8(case, "cpu")
+    nd, td = grid.shape[:2]
+    pad, pad_t = -nd % 128, -td % 32
+    want = _jax_scores(
+        q.numpy(), qs.numpy(), np.pad(grid.numpy(), ((0, pad), (0, pad_t), (0, 0))),
+        np.pad(scales.float().numpy(), ((0, pad), (0, pad_t))), tq,
+    )[:, :nd]
+    got = maxsim_grid_scores_int8i(q, qs, grid, scales, tq=tq).numpy()
+    assert got.shape == want.shape == (case[1], nd)
+    tol = RTOL * max(float(np.abs(want).max()), 1.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    empty = scales.float().numpy().max(axis=1) == 0
+    assert (got[:, empty] == 0).all()
+
+
+def test_per_token_values_are_exact():
+    """Per-token values of the plain version equal float(int32 dot) * scale
+    bit for bit (the contract the kernel's epilogue keeps): one query token,
+    so a score is one value times the query scale."""
+    rng = np.random.default_rng(3)
+    q = rng.integers(-127, 128, (1, 128)).astype(np.int8)
+    grid = rng.integers(-127, 128, (16, 70, 128)).astype(np.int8)
+    scales = _bf16_values(rng.uniform(0.002, 0.01, (16, 70)))
+    scales[:, 3::5] = 0.0
+    qs = np.array([0.5], np.float32)
+    got = maxsim_grid_scores_int8i(*_torch(q, qs, grid, scales), tq=1).numpy()[0]
+    dots = grid.astype(np.int32) @ q[0].astype(np.int32)  # [16, 70]
+    vals = np.where(scales > 0, dots.astype(np.float32) * scales, -np.inf)
+    np.testing.assert_array_equal(got, np.float32(0.5) * vals.max(axis=1))
+
+
+@pytest.mark.parametrize("td,d,td_k,d_k", [(33, 32, 40, 128), (64, 128, 64, 128),
+                                           (70, 96, 72, 128), (100, 160, 104, 256)])
+def test_pad_int8_inputs_keeps_scores(td, d, td_k, d_k):
+    """Zero features and zero-scale tokens pad d and Td for the kernel and
+    change no score."""
+    q, qscale, grid, scales = _inputs(td, 2, 8, 64, td, d)
+    tq_, tqs, tg, ts = _torch(q, qscale, grid, scales)
+    pq, pg, ps = maxsim_kernel.pad_int8_inputs(tq_, tg, ts)
+    assert pq.shape == (16, d_k) and pg.shape == (64, td_k, d_k) and ps.shape == (64, td_k)
+    assert (pg is tg) == ((td, d) == (td_k, d_k))
+    np.testing.assert_array_equal(
+        maxsim_grid_scores_int8i_reference(pq, tqs, pg, ps, tq=8).numpy(),
+        maxsim_grid_scores_int8i_reference(tq_, tqs, tg, ts, tq=8).numpy(),
+    )
+
+
 def test_plain_version_tiles_docs():
     q, qscale, grid, scales = _inputs(5, 2, 8, 128, 32, 64)
     args = _torch(q, qscale, grid, scales)
@@ -182,3 +245,32 @@ def test_kernel_matches_plain_version(cuda, q_n, tq, nd, td, d):
     want = maxsim_grid_scores_int8i_reference(*args, tq=tq)
     tol = RTOL * float(want.abs().max())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.TILING_CASES, ids=TILING_IDS)
+def test_tiling_cases_kernel_matches_plain_version(cuda, case):
+    """Kernel vs plain version on the card: atol 1e-5 x max|score|."""
+    args = chip_smoke.tiling_case_int8(case, cuda)
+    before = maxsim_grid_scores_int8i.launches
+    got = maxsim_grid_scores_int8i(*args)
+    torch.cuda.synchronize()
+    assert maxsim_grid_scores_int8i.launches == before + 1
+    want = maxsim_grid_scores_int8i_reference(*args)
+    tol = RTOL * max(float(want.abs().max()), 1.0)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_per_token_values_are_exact_on_the_card(cuda):
+    """One query token: the kernel's score is float(int32 dot) * scale times
+    the query scale, bit for bit with the plain version."""
+    rng = np.random.default_rng(4)
+    q = rng.integers(-127, 128, (1, 128)).astype(np.int8)
+    grid = rng.integers(-127, 128, (300, 200, 128)).astype(np.int8)
+    scales = _bf16_values(rng.uniform(0.002, 0.01, (300, 200)))
+    scales[:, 3::5] = 0.0
+    args = tuple(a.to(cuda) for a in _torch(q, np.array([0.5], np.float32), grid, scales))
+    got = maxsim_grid_scores_int8i(*args, tq=1)
+    want = maxsim_grid_scores_int8i_reference(*args, tq=1)
+    assert torch.equal(got, want)
