@@ -2,17 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernel sources (bf16 MaxSim and int8 MaxSim, both on
-the wgmma/TMA design of csrc/maxsim_wgmma.cuh, and the MaxSim variant
-family) from this checkout, one nvcc each, at once, fails on a
+Builds the three CUDA kernel sources (bf16 MaxSim, int8 MaxSim and the
+MaxSim variant family, all three instances of the wgmma/TMA template of
+csrc/maxsim_wgmma.cuh) from this checkout, one nvcc each, at once, fails on a
 serialized-wgmma warning in the build logs, and holds each kernel against
 its plain PyTorch version on the card: the edge cases, a main-path slice and
 the shapes a 64-row tiling can get wrong (TILING_CASES). Then drives the
 port's paths:
   1. the variant sweep of scripts/profile_torch_kernel_variants.py (5,184
      docs x Td 384 x d 128, 64 queries x 32 tokens): every variant checked
-     and timed beside the one-big-dot floor and the bound, and the served
-     bf16 kernel timed once at the same shape;
+     and timed with its launch plan beside the one-big-dot floor and its own
+     bound (the valid rows' products for MaxSim, every row's for the probe),
+     and the served bf16 kernel timed once at the same shape;
   2. SciFact scale (5,183 docs, doclens 64-300, ~1.5M tokens, d 128,
      nbits 4, 16,384 centroids): a corpus made on the card from a seed,
      `create_index_from_device`, `DeviceIndex.load`,
@@ -671,8 +672,9 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
 
 def variants_phase(device, mv, mk):
     """The variant sweep at its shape: every variant of csrc/maxsim_variants.cu
-    against its plain version, then timed beside the one-big-dot floor and the
-    bound. Returns the family's entry of the kernels line."""
+    against its plain version, then timed with its plan beside the
+    one-big-dot floor and its own bound. Returns the family's entry of the
+    kernels line."""
     tq = mv.SWEEP_SHAPE["tq"]
     q_n = 64
     qflat, grid, lens, addmask = mv.sweep_inputs(device, q_n)
@@ -681,10 +683,17 @@ def variants_phase(device, mv, mk):
     plain_ms = time_ms(lambda: mv.maxsim_variant_scores_reference(qflat, grid, lens, tq), reps=3)
     floor_ms = time_ms(lambda: mv.one_big_dot_floor(qflat, grid), reps=5)
     valid_rows = int(lens.sum())
-    ops = 2.0 * qflat.shape[0] * grid.shape[2] * valid_rows
+    all_rows = grid.shape[0] * grid.shape[1]
     nbytes = qflat.numel() * 2 + grid.numel() * 2 + lens.numel() * 4 + q_n * grid.shape[0] * 4
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    bound_ms, bound_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_bytes = nbytes / PEAK_HBM_BYTES
+
+    def bound(rows):
+        t_ops = 2.0 * qflat.shape[0] * grid.shape[2] * rows / PEAK_BF16_FLOPS
+        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+    # MaxSim needs the valid rows' products; the probe's sum needs every row's.
+    bound_ms, bound_by = bound(valid_rows)
+    probe_bound_ms, _ = bound(all_rows)
 
     def call(variant):
         name, mask, geometry, reduce, dots = variant
@@ -729,12 +738,26 @@ def variants_phase(device, mv, mk):
     if launches < 6 * len(mv.SWEEP_VARIANTS):
         raise AssertionError(f"the sweep launched the variant kernel {launches} times")
     print(f"variant sweep: bound {bound_ms:.3f} ms ({bound_by}; {valid_rows} valid rows' products "
-          f"at 989 TFLOP/s), one-big-dot floor (torch.matmul) {floor_ms:.3f} ms, plain version "
-          f"{plain_ms:.3f} ms; kernel launches {launches}", flush=True)
-    for name, ms in times.items():
-        print(f"  variant {name:18s} {ms:8.3f} ms  ({100 * bound_ms / ms:5.1f}% of the bound, "
-              f"{ms / floor_ms:5.2f} x the floor)", flush=True)
+          f"at 989 TFLOP/s), probe's bound {probe_bound_ms:.3f} ms ({all_rows} rows), one-big-dot "
+          f"floor (torch.matmul) {floor_ms:.3f} ms, plain version {plain_ms:.3f} ms; kernel "
+          f"launches {launches}", flush=True)
+    plans = {}
+    for name, mask, geometry, reduce, dots in mv.SWEEP_VARIANTS:
+        plan = mv.variant_plan(q_n, tq, grid.shape[2], mask=mask, geometry=geometry,
+                               reduce=reduce, dots_only=dots)
+        plans[name] = dict(n=plan.n, warpgroups=plan.n_wg, stages=plan.stages, rows=plan.rows,
+                           docs_per_block=plan.dpb)
+        own = probe_bound_ms if dots else bound_ms
+        ms = times[name]
+        print(f"  variant {name:18s} {ms:8.3f} ms  ({100 * own / ms:5.1f}% of its bound "
+              f"{own:.3f} ms, {ms / floor_ms:5.2f} x the floor)  plan: N {plan.n} x {plan.n_wg} "
+              f"wg, {plan.stages} stages of {plan.rows} rows, {plan.dpb} docs a block", flush=True)
     best = min((v[0] for v in mv.SWEEP_VARIANTS if not v[4]), key=times.get)
+    probe = min((v[0] for v in mv.SWEEP_VARIANTS if v[4]), key=times.get)
+    print(f"best MaxSim variant {best} {times[best]:.3f} ms ({100 * bound_ms / times[best]:.1f}% "
+          f"of {bound_ms:.3f} ms); best probe {probe} {times[probe]:.3f} ms "
+          f"({100 * probe_bound_ms / times[probe]:.1f}% of {probe_bound_ms:.3f} ms), "
+          f"{times[probe] / floor_ms:.3f} x the one-big-dot floor", flush=True)
     # The served bf16 kernel at the sweep's shape, beside the best variant.
     served = mk.maxsim_grid_scores(qflat, grid, lens, tq)  # [Q, ND]; the variants give [ND, Q]
     torch.cuda.synchronize()
@@ -754,8 +777,9 @@ def variants_phase(device, mv, mk):
         library_ms=floor_ms,
         library_note="one-big-dot floor: bf16 torch.matmul of the same contraction with a "
                      "per-doc sum; it computes the probe's function, not MaxSim",
-        best_variant=best, variants_ms=times, probe_max_abs_err=err_probe,
-        served_bf16_ms_at_sweep_shape=served_ms)
+        best_variant=best, variants_ms=times, variant_plans=plans, probe_max_abs_err=err_probe,
+        probe_ms=times[probe], probe_bound_ms=probe_bound_ms,
+        probe_to_floor=times[probe] / floor_ms, served_bf16_ms_at_sweep_shape=served_ms)
     del qflat, grid, lens, addmask, plain_max, plain_probe
     gc.collect()
     torch.cuda.empty_cache()

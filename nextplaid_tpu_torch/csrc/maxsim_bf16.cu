@@ -50,7 +50,7 @@ int maxsim_bf16_smem_bytes(int n, int n_wg, int panels, int stages) {
 
 // Launches the kernel on `stream`. Shapes are checked by the caller: d a
 // multiple of 64 up to 256, tq <= n, n one of 32, 64, 128, 256, n_wg 1 or 2,
-// dpb up to 32 docs a block, 2 to 8 stages, 16-byte aligned inputs. Returns
+// dpb up to 64 docs a block, 2 to 8 stages, 16-byte aligned inputs. Returns
 // 0 or an error code for maxsim_bf16_error_string.
 int maxsim_bf16_scores(const void* queries, const void* grid, const int* doclens, float* out,
                        int q_n, int tq, int nd, int td, int d, int n, int n_wg, int dpb,

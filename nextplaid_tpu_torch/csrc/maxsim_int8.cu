@@ -54,7 +54,7 @@ int maxsim_int8_smem_bytes(int n, int n_wg, int panels, int stages) {
 }
 
 // Launches the kernel on `stream`. Shapes are checked by the caller: d 128
-// or 256, tq <= n, n one of 32, 64, 128, 256, n_wg 1 or 2, dpb up to 32 docs
+// or 256, tq <= n, n one of 32, 64, 128, 256, n_wg 1 or 2, dpb up to 64 docs
 // a block, 2 to 8 stages, td a multiple of 8, 16-byte aligned inputs.
 // Returns 0 or an error code for maxsim_int8_error_string.
 int maxsim_int8_scores(const void* queries, const void* qscales, const void* grid,

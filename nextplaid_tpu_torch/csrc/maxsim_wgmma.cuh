@@ -1,6 +1,11 @@
-// Shared device and host code of the two served MaxSim kernels
-// (maxsim_bf16.cu, maxsim_int8.cu): one kernel template for Hopper (sm_90a),
-// instantiated for bf16 and for int8 token grids.
+// Shared device and host code of the MaxSim kernels (maxsim_bf16.cu,
+// maxsim_int8.cu and the variant family maxsim_variants.cu): one kernel
+// template for Hopper (sm_90a), instantiated for bf16 and for int8 token
+// grids. The served kernels take the default Policy; the variant family
+// (bf16 only) picks, at compile time, the mask input (doc lengths, an
+// additive f32 row mask, or the dots-only probe's sum), the row reduction
+// (registers, or a column scan in shared memory), the 64-row tiles a ring
+// stage holds (1 or 2) and a doc-major output.
 //
 // The design, common to both types:
 //   - a block has three warpgroups: two consumers and one producer. The
@@ -42,7 +47,7 @@
 // epilogue for int8. The bf16 kernel runs at the card's power limit; in the
 // int8 kernel the products and the reduction take turns rather than overlap.
 //
-// Build: included by the two sources; no separate compilation.
+// Build: included by the three sources; no separate compilation.
 
 #pragma once
 
@@ -60,8 +65,9 @@ constexpr int kPanelBytes = 128;  // bytes of a row in one swizzle panel
 constexpr int kTilePanelBytes = kTileRows * kPanelBytes;
 constexpr int kConsumers = 2;     // consumer warpgroups of a block
 constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kMaxDocsPerBlock = 32;
+constexpr int kMaxDocsPerBlock = 64;
 constexpr int kMaxStages = 8;
+constexpr int kScratchPad = 8;    // f32 past N in a scratch row (conflict-free float2 stores)
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
 constexpr int kEncodeFailed = 100000;  // error codes above cudaError_t's
 
@@ -293,10 +299,40 @@ struct Int8 {
   }
 };
 
+// What marks a doc's valid rows, and what is taken over them:
+//   kLens     bf16: the rows below the doc's length (doclens), max over
+//             them; int8: the rows with a positive scale (the type decides);
+//   kAdditive bf16: an f32 value a row ([nd, td] in device memory; 0 or
+//             -1e30 in the sweep) added before the max. Every row is
+//             walked: the mask need not be a prefix, so no length is
+//             derived from it. A doc whose maxima all stay below -1e30 / 2
+//             scores 0;
+//   kDots     the sweep's dots-only probe: no mask, every row of the
+//             block's docs SUMMED in one accumulator (scale-d 1 across
+//             tiles, no per-tile epilogue); each doc of the block gets the
+//             block's sum. Wrong by design: it times the products and feed.
+enum Mask : int { kLens = 0, kAdditive = 1, kDots = 2 };
+// Where a tile's row max is taken: in registers on the accumulator's layout
+// (kRegisters), or by a column scan of the accumulator staged in shared
+// memory (kShared; [n_wg][64][N + pad] f32 of scratch).
+enum Reduce : int { kRegisters = 0, kShared = 1 };
+
+// An instance's compile-time choices. SUB: 64-row tiles a ring stage holds,
+// the products between two mbarrier waits. DOC_MAJOR: out is [nd, q_n]
+// (the variant family's), else [q_n, nd] (the served kernels').
+template <int MASK = kLens, int REDUCE = kRegisters, int SUB = 1, bool DOC_MAJOR = false>
+struct Policy {
+  static constexpr int kMask = MASK;
+  static constexpr int kReduce = REDUCE;
+  static constexpr int kSub = SUB;
+  static constexpr bool kDocMajor = DOC_MAJOR;
+};
+using Served = Policy<>;
+
 struct Params {
-  const void* lens_src;  // bf16: doclens [nd] int32; int8: scales [nd, td] bf16 bits
+  const void* lens_src;  // bf16 kLens: doclens [nd] int32; int8: scales [nd, td] bf16 bits
   const float* qscales;  // int8 only: [q_n * tq]
-  float* out;            // [q_n, nd]
+  float* out;            // [q_n, nd], or [nd, q_n] under DOC_MAJOR
   int q_n, tq, nd, td;
   int qpw;          // whole queries a warpgroup owns (qpw * tq <= N)
   int n_wg;         // query groups (consumer warpgroups at work) a block takes
@@ -308,19 +344,25 @@ struct Params {
 };
 
 // Offsets of a block's dynamic shared memory, from a 1,024-byte aligned base.
+// sub: tiles a stage; side: bytes of a tile's side input (the additive
+// mask's 64 f32; int8's 64 bf16 scales come with `scales`); scratch: the
+// shared-memory row reduction's staging.
 struct Layout {
-  int b, ring, sc, wmax, colmax, qs, lens, bars, total;
+  int b, ring, sc, scratch, wmax, colmax, qs, lens, bars, total;
 };
 __host__ __device__ inline Layout smem_layout(int n, int n_wg, int panels, int stages,
-                                              bool scales) {
+                                              bool scales, int sub = 1, int side = 0,
+                                              bool scratch = false) {
   Layout l;
   int off = 0;
   l.b = off;  // [n_wg][panels][n rows][128 bytes], swizzled
   off += n_wg * panels * n * kPanelBytes;
-  l.ring = off;  // [stages][panels][64 rows][128 bytes], swizzled
-  off += stages * panels * kTilePanelBytes;
-  l.sc = off;  // [stages][64] bf16 row scales
-  off += scales ? stages * kTileRows * 2 : 0;
+  l.ring = off;  // [stages][sub][panels][64 rows][128 bytes], swizzled
+  off += stages * sub * panels * kTilePanelBytes;
+  l.sc = off;  // [stages][sub][64] bf16 row scales or f32 row mask values
+  off += stages * sub * (scales ? kTileRows * 2 : side);
+  l.scratch = off;  // [n_wg][64 rows][n + pad] f32
+  off += scratch ? n_wg * kTileRows * (n + kScratchPad) * 4 : 0;
   l.wmax = off;  // [consumers][4 warps][n] f32
   off += kConsumers * 4 * n * 4;
   l.colmax = off;  // [consumers][n] f32
@@ -339,35 +381,70 @@ __host__ __device__ inline Layout smem_layout(int n, int n_wg, int panels, int s
 // by halving: at each of three steps a lane keeps one half of its values
 // and trades the other half with the lane across, so 7 C / 8 shuffles do
 // what 3 C would. Afterwards v[0 .. C/8) of the lane in row group g are the
-// maxima of the original indices g * C/8 + r.
-template <int HALF, int MASK, int C>
+// maxima of the original indices g * C/8 + r. SUM: sums instead of maxima.
+template <int HALF, int MASK, int C, bool SUM>
 __device__ __forceinline__ void fold_step(float (&v)[C], int lane) {
   const bool upper = (lane & MASK) != 0;
 #pragma unroll
   for (int i = 0; i < HALF; ++i) {
     const float send = upper ? v[i] : v[i + HALF];
     const float keep = upper ? v[i + HALF] : v[i];
-    v[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, MASK));
+    const float other = __shfl_xor_sync(0xffffffffu, send, MASK);
+    v[i] = SUM ? keep + other : fmaxf(keep, other);
   }
 }
-template <int C>
+template <int C, bool SUM = false>
 __device__ __forceinline__ void fold_rows(float (&v)[C], int lane) {
-  fold_step<C / 2, 16>(v, lane);
-  fold_step<C / 4, 8>(v, lane);
-  fold_step<C / 8, 4>(v, lane);
+  fold_step<C / 2, 16, C, SUM>(v, lane);
+  fold_step<C / 4, 8, C, SUM>(v, lane);
+  fold_step<C / 8, 4, C, SUM>(v, lane);
+}
+
+// Writes a warp's folded columns (fold_rows' v[0 .. C/8) of row group g)
+// into its row of wmax [4 warps][N].
+template <int N, int C>
+__device__ __forceinline__ void store_folded(const float (&v)[C], float* wmax, int warp, int g,
+                                             int t4) {
+  constexpr int kKeep = C / 8;  // columns this lane holds after the fold
+  const int first = g * kKeep;  // index of v[0] among the C
+  if constexpr (kKeep == 1) {
+    wmax[warp * N + 8 * (first >> 1) + 2 * t4 + (first & 1)] = v[0];
+  } else {
+#pragma unroll
+    for (int r = 0; r < kKeep; r += 2) {
+      *reinterpret_cast<float2*>(wmax + warp * N + 8 * ((first + r) >> 1) + 2 * t4) =
+          make_float2(v[r], v[r + 1]);
+    }
+  }
+}
+
+// Stages a tile's accumulator (H registers: rows g and g + 8 of the warp's
+// 16, column pairs 8j + 2 t4) in scratch [64 rows][N + kScratchPad] f32.
+template <int N, int H>
+__device__ __forceinline__ void stage_tile(const float (&acc)[H], float* scratch, int warp, int g,
+                                           int t4) {
+  constexpr int kLd = N + kScratchPad;
+  float* row = scratch + (warp * 16 + g) * kLd + 2 * t4;
+#pragma unroll
+  for (int j = 0; j < H / 4; ++j) {
+    *reinterpret_cast<float2*>(row + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(row + 8 * kLd + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
 }
 
 // The products of one 64-row tile (descriptor da0) with a warpgroup's
-// columns (descriptor db0) into `acc`, as one wgmma group.
+// columns (descriptor db0) into `acc`, as one wgmma group; added to `acc`
+// if `accumulate`, else overwriting it.
 template <class T, int H>
 __device__ __forceinline__ void multiply_tile(typename T::Acc (&acc)[H], uint64_t da0, uint64_t db0,
-                                           int panels, int b_panel_units) {
+                                           int panels, int b_panel_units,
+                                           bool accumulate = false) {
   wgmma_fence();
   for (int pp = 0; pp < panels; ++pp) {
     const uint64_t da = da0 + pp * (kTilePanelBytes >> 4);
     const uint64_t db = db0 + pp * b_panel_units;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) T::mma(acc, da + 2 * k, db + 2 * k, (pp | k) != 0);
+    for (int k = 0; k < 4; ++k) T::mma(acc, da + 2 * k, db + 2 * k, accumulate || (pp | k) != 0);
   }
   wgmma_commit();
 }
@@ -415,25 +492,47 @@ __device__ __forceinline__ void tile_max_masked(const float (&acc)[H], float (&r
     }
   }
 }
+// Additive mask: rows g and g + 8 get mv[0] and mv[1] (-inf past td) added
+// before the max.
+template <int H, int C>
+__device__ __forceinline__ void tile_max_added(const float (&acc)[H], float (&rmax)[C],
+                                               const float (&mv)[2]) {
+#pragma unroll
+  for (int j = 0; j < H / 4; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      rmax[2 * j + c] =
+          fmaxf(rmax[2 * j + c], fmaxf(acc[4 * j + c] + mv[0], acc[4 * j + 2 + c] + mv[1]));
+    }
+  }
+}
 
-template <class T, int N>
+template <class T, int N, class V = Served>
 __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
     maxsim_kernel(const __grid_constant__ CUtensorMap map_q,  // [q_n * tq, row]
                   const __grid_constant__ CUtensorMap map_g,  // [nd, td, row]
-                  const __grid_constant__ CUtensorMap map_s,  // [nd, td] scales (int8)
+                  const __grid_constant__ CUtensorMap map_s,  // [nd, td] int8 scales or f32 mask
                   const Params p) {
   using Acc = typename T::Acc;
   constexpr int kAcc = N / 2;   // accumulator registers a thread
   constexpr int kCols = N / 4;  // columns a thread sees (two rows of each)
+  constexpr bool kAdd = V::kMask == kAdditive;
+  constexpr bool kSum = V::kMask == kDots;
+  constexpr bool kScan = V::kReduce == kShared && !kSum;
+  constexpr int kScanCols = N >= 128 ? N / 128 : 1;  // columns a thread scans
+  // Bytes of a tile's side input in the ring: its rows' scales or mask values.
+  constexpr int kSide = T::kScales ? kTileRows * 2 : (kAdd ? kTileRows * 4 : 0);
+  static_assert(!T::kScales || (V::kMask == kLens && V::kReduce == kRegisters),
+                "the int8 instance takes its scales as the mask and reduces in registers");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
-  const Layout L = smem_layout(N, p.n_wg, p.panels, p.stages, T::kScales);
+  const Layout L = smem_layout(N, p.n_wg, p.panels, p.stages, T::kScales, V::kSub, kSide, kScan);
   int* lens = reinterpret_cast<int*>(sm + L.lens);
   const uint32_t full0 = smem_u32(sm + L.bars);
   const uint32_t empty0 = full0 + 8 * kMaxStages;
   const uint32_t bfull = empty0 + 8 * kMaxStages;
-  const int stage_bytes = p.panels * kTilePanelBytes;
+  const int tile_bytes = p.panels * kTilePanelBytes;  // one tile's rows in the ring
   const int b_panel_bytes = N * kPanelBytes;
 
   const int lane = threadIdx.x & 31;
@@ -446,7 +545,8 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
   const int active = min(p.n_wg, n_qgroups - qg0);  // consumer warpgroups at work
 
   // Each doc's row bound: its length, or 1 + its last token with a positive
-  // scale. Tiles past it are neither loaded nor multiplied.
+  // scale, or (additive mask, probe) td. Tiles past it are neither loaded
+  // nor multiplied.
   if constexpr (T::kScales) {
     const uint16_t* scales = static_cast<const uint16_t*>(p.lens_src);
     for (int dl = threadIdx.x >> 5; dl < ndocs; dl += kThreads / 32) {
@@ -459,11 +559,13 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
       last = __reduce_max_sync(0xffffffffu, last);
       if (lane == 0) lens[dl] = last;
     }
-  } else {
+  } else if constexpr (V::kMask == kLens) {
     const int* doclens = static_cast<const int*>(p.lens_src);
     for (int dl = threadIdx.x; dl < ndocs; dl += kThreads) {
       lens[dl] = max(0, min(doclens[doc0 + dl], p.td));
     }
+  } else {
+    for (int dl = threadIdx.x; dl < ndocs; dl += kThreads) lens[dl] = p.td;
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
@@ -491,20 +593,24 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
       }
       const uint32_t ring0 = smem_u32(sm + L.ring);
       const uint32_t sc0 = smem_u32(sm + L.sc);
-      const int tile_bytes = stage_bytes + (T::kScales ? kTileRows * 2 : 0);
       int stage = 0, phase = 0;
       for (int dl = 0; dl < ndocs; ++dl) {
         const int n_tiles = (lens[dl] + kTileRows - 1) / kTileRows;
-        for (int t = 0; t < n_tiles; ++t) {
+        // A stage holds up to kSub tiles of one doc.
+        for (int t = 0; t < n_tiles; t += V::kSub) {
+          const int ns = V::kSub == 1 ? 1 : min(V::kSub, n_tiles - t);
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
           const uint32_t full = full0 + 8 * stage;
-          mbar_expect_tx(full, tile_bytes);
-          for (int pp = 0; pp < p.panels; ++pp) {
-            tma_load_3d(ring0 + stage * stage_bytes + pp * kTilePanelBytes, &map_g, full,
-                        pp * p.panel_elems, t * kTileRows, doc0 + dl);
-          }
-          if constexpr (T::kScales) {
-            tma_load_2d(sc0 + stage * kTileRows * 2, &map_s, full, t * kTileRows, doc0 + dl);
+          mbar_expect_tx(full, ns * (tile_bytes + kSide));
+          for (int s = 0; s < ns; ++s) {
+            const int slot = stage * V::kSub + s;
+            for (int pp = 0; pp < p.panels; ++pp) {
+              tma_load_3d(ring0 + slot * tile_bytes + pp * kTilePanelBytes, &map_g, full,
+                          pp * p.panel_elems, (t + s) * kTileRows, doc0 + dl);
+            }
+            if constexpr (kSide > 0) {
+              tma_load_2d(sc0 + slot * kSide, &map_s, full, (t + s) * kTileRows, doc0 + dl);
+            }
           }
           if (++stage == p.stages) {
             stage = 0;
@@ -525,7 +631,10 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
     float* wmax = reinterpret_cast<float*>(sm + L.wmax) + wg * 4 * N;  // [4][N]
     float* colmax = reinterpret_cast<float*>(sm + L.colmax) + wg * N;
     float* qs = reinterpret_cast<float*>(sm + L.qs) + wg * N;
-    float* out_q = p.out + (long long)(q0 + tid) * p.nd + doc0;  // row of query q0 + tid
+    // The score of query q0 + tid and doc doc0 + dl lands at out0[dl * out_step].
+    float* const out0 = V::kDocMajor ? p.out + (long long)doc0 * p.q_n + q0 + tid
+                                     : p.out + (long long)(q0 + tid) * p.nd + doc0;
+    const long long out_step = V::kDocMajor ? p.q_n : 1;
     if constexpr (T::kScales) {
       for (int c = tid; c < N; c += 128) {
         qs[c] = c < nq * p.tq ? p.qscales[(long long)q0 * p.tq + c] : 0.0f;
@@ -535,7 +644,7 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
     // The next doc at or after d with a valid row; docs without one score 0.
     auto next_doc = [&](int d) {
       while (d < ndocs && lens[d] == 0) {
-        if (tid < nq) out_q[d] = 0.0f;
+        if (tid < nq) out0[d * out_step] = 0.0f;
         ++d;
       }
       return d;
@@ -547,72 +656,170 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
     constexpr float kLowest = T::kScales ? kNeg : -INFINITY;
 
     Acc acc[kAcc];
-    float rmax[kCols];
     int stage = 0, phase = 0;
-    for (int dl = next_doc(0); dl < ndocs; dl = next_doc(dl + 1)) {
-      const int len = lens[dl];
+    if constexpr (kSum) {
+      // The probe: every tile into one accumulator. A stage is handed back
+      // once the products of the next are started (wait_group 1), so the
+      // tensor cores never drain between tiles.
 #pragma unroll
-      for (int i = 0; i < kCols; ++i) rmax[i] = kLowest;
-
-      for (int t = 0; t * kTileRows < len; ++t) {
-        mbar_wait(full0 + 8 * stage, phase);
-        multiply_tile<T>(acc, make_desc(ring0 + stage * stage_bytes), desc_b, p.panels,
-                      b_panel_units);
-        if constexpr (T::kScales) {
-          // The rows' scales, read before the tile is handed back.
-          const uint16_t* tsc =
-              reinterpret_cast<const uint16_t*>(sm + L.sc) + stage * kTileRows + warp * 16 + g;
-          float sv[2], cv[2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float x = __uint_as_float(static_cast<uint32_t>(tsc[8 * h]) << 16);
-            const bool ok = x > 0.0f;
-            sv[h] = ok ? x : 0.0f;
-            cv[h] = ok ? -kMagic * x : kNeg;
+      for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
+      int held = -1;  // the stage the products in flight may still read
+      for (int dl = 0; dl < ndocs; ++dl) {
+        const int n_tiles = (lens[dl] + kTileRows - 1) / kTileRows;
+        for (int t = 0; t < n_tiles; t += V::kSub) {
+          const int ns = min(V::kSub, n_tiles - t);
+          mbar_wait(full0 + 8 * stage, phase);
+          for (int s = 0; s < ns; ++s) {
+            multiply_tile<T>(acc, make_desc(ring0 + (stage * V::kSub + s) * tile_bytes), desc_b,
+                             p.panels, b_panel_units, true);
           }
-          wgmma_wait<0>();
-          __syncwarp();
-          if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // the tile is read
-          tile_max_scaled(acc, rmax, sv, cv);
-        } else {
-          const int row = t * kTileRows + warp * 16 + g;  // and row + 8
-          wgmma_wait<0>();
-          __syncwarp();
-          if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // the tile is read
-          tile_max_masked(acc, rmax, (t + 1) * kTileRows <= len, row < len, row + 8 < len);
-        }
-        if (++stage == p.stages) {
-          stage = 0;
-          phase ^= 1;
+          wgmma_wait<1>();
+          if (held >= 0) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty0 + 8 * held);
+          }
+          held = stage;
+          if (++stage == p.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
-
-      // The doc is done: fold the 8 row groups of each warp, then the 4
-      // warps, then sum each query's tokens in order.
-      fold_rows<kCols>(rmax, lane);
-      constexpr int kKeep = kCols / 8;  // columns this lane holds after the fold
-      const int first = g * kKeep;      // index of rmax[0] among the kCols
-      if constexpr (kKeep == 1) {
-        wmax[warp * N + 8 * (first >> 1) + 2 * t4 + (first & 1)] = rmax[0];
-      } else {
+      wgmma_wait<0>();
+      // Column sums: a lane's two rows, the 8 row groups, the 4 warps, then
+      // each query's tokens in order; every doc of the block gets the sum.
+      float csum[kCols];
 #pragma unroll
-        for (int r = 0; r < kKeep; r += 2) {
-          *reinterpret_cast<float2*>(wmax + warp * N + 8 * ((first + r) >> 1) + 2 * t4) =
-              make_float2(rmax[r], rmax[r + 1]);
-        }
+      for (int j = 0; j < kAcc / 4; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) csum[2 * j + c] = acc[4 * j + c] + acc[4 * j + 2 + c];
       }
+      fold_rows<kCols, true>(csum, lane);
+      store_folded<N>(csum, wmax, warp, g, t4);
       group_sync(wg);
       for (int c = tid; c < N; c += 128) {
-        float m = fmaxf(fmaxf(wmax[c], wmax[N + c]), fmaxf(wmax[2 * N + c], wmax[3 * N + c]));
-        if constexpr (T::kScales) m = (m > 0.5f * kNeg ? m : 0.0f) * qs[c];
-        colmax[c] = m;
+        colmax[c] = (wmax[c] + wmax[N + c]) + (wmax[2 * N + c] + wmax[3 * N + c]);
       }
       group_sync(wg);
       if (tid < nq) {
         const float* cm = colmax + tid * p.tq;
         float sum = 0.0f;
         for (int k = 0; k < p.tq; ++k) sum += cm[k];
-        out_q[dl] = sum;
+        for (int dl = 0; dl < ndocs; ++dl) out0[dl * out_step] = sum;
+      }
+    } else {
+      // Running maxima: kCols a thread on the accumulator's layout, or the
+      // kScanCols columns it scans in shared memory.
+      float rmax[kScan ? kScanCols : kCols];
+      float* scratch = reinterpret_cast<float*>(sm + L.scratch) +
+                       wg * kTileRows * (N + kScratchPad);  // [64][N + pad]
+      for (int dl = next_doc(0); dl < ndocs; dl = next_doc(dl + 1)) {
+        const int len = lens[dl];
+#pragma unroll
+        for (int i = 0; i < (kScan ? kScanCols : kCols); ++i) rmax[i] = kLowest;
+
+        for (int t = 0; t * kTileRows < len; t += V::kSub) {
+          const int ns =
+              V::kSub == 1 ? 1 : min(V::kSub, (len + kTileRows - 1) / kTileRows - t);
+          mbar_wait(full0 + 8 * stage, phase);
+          for (int s = 0; s < ns; ++s) {
+            const int slot = stage * V::kSub + s;
+            const int r0 = (t + s) * kTileRows;  // the tile's first row in the doc
+            const bool last = s == ns - 1;       // the stage is read after this tile
+            multiply_tile<T>(acc, make_desc(ring0 + slot * tile_bytes), desc_b, p.panels,
+                             b_panel_units);
+            if constexpr (T::kScales) {
+              // The rows' scales, read before the tile is handed back.
+              const uint16_t* tsc = reinterpret_cast<const uint16_t*>(sm + L.sc) +
+                                    slot * kTileRows + warp * 16 + g;
+              float sv[2], cv[2];
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float x = __uint_as_float(static_cast<uint32_t>(tsc[8 * h]) << 16);
+                const bool ok = x > 0.0f;
+                sv[h] = ok ? x : 0.0f;
+                cv[h] = ok ? -kMagic * x : kNeg;
+              }
+              wgmma_wait<0>();
+              __syncwarp();
+              if (last && lane == 0) mbar_arrive(empty0 + 8 * stage);  // the stage is read
+              tile_max_scaled(acc, rmax, sv, cv);
+            } else if constexpr (kScan) {
+              // Stage the accumulator, then each thread scans its columns
+              // over the tile's valid rows (mask values added).
+              const float* tm = reinterpret_cast<const float*>(sm + L.sc) + slot * kTileRows;
+              const int nr = min(kTileRows, len - r0);
+              wgmma_wait<0>();
+              stage_tile<N>(acc, scratch, warp, g, t4);
+              group_sync(wg);
+#pragma unroll
+              for (int i = 0; i < kScanCols; ++i) {
+                const int c = tid + 128 * i;
+                if (c < N) {
+                  float m = rmax[i];
+                  for (int r = 0; r < nr; ++r) {
+                    const float v = scratch[r * (N + kScratchPad) + c];
+                    m = fmaxf(m, kAdd ? v + tm[r] : v);
+                  }
+                  rmax[i] = m;
+                }
+              }
+              group_sync(wg);  // scratch and mask values read
+              if (last && lane == 0) mbar_arrive(empty0 + 8 * stage);
+            } else if constexpr (kAdd) {
+              // The rows' mask values, read before the tile is handed back;
+              // rows past td (zero-filled) drop out.
+              const float* tm = reinterpret_cast<const float*>(sm + L.sc) + slot * kTileRows +
+                                warp * 16 + g;
+              const int row = r0 + warp * 16 + g;  // and row + 8
+              float mv[2];
+              mv[0] = row < len ? tm[0] : -INFINITY;
+              mv[1] = row + 8 < len ? tm[8] : -INFINITY;
+              wgmma_wait<0>();
+              __syncwarp();
+              if (last && lane == 0) mbar_arrive(empty0 + 8 * stage);
+              tile_max_added(acc, rmax, mv);
+            } else {
+              const int row = r0 + warp * 16 + g;  // and row + 8
+              wgmma_wait<0>();
+              __syncwarp();
+              if (last && lane == 0) mbar_arrive(empty0 + 8 * stage);  // the stage is read
+              tile_max_masked(acc, rmax, r0 + kTileRows <= len, row < len, row + 8 < len);
+            }
+          }
+          if (++stage == p.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+
+        // The doc is done: fold the 8 row groups of each warp, then the 4
+        // warps (or take the scanned columns), then sum each query's tokens
+        // in order.
+        if constexpr (kScan) {
+#pragma unroll
+          for (int i = 0; i < kScanCols; ++i) {
+            const int c = tid + 128 * i;
+            if (c < N) colmax[c] = !kAdd || rmax[i] > 0.5f * kNeg ? rmax[i] : 0.0f;
+          }
+        } else {
+          fold_rows<kCols>(rmax, lane);
+          store_folded<N>(rmax, wmax, warp, g, t4);
+          group_sync(wg);
+          for (int c = tid; c < N; c += 128) {
+            float m = fmaxf(fmaxf(wmax[c], wmax[N + c]), fmaxf(wmax[2 * N + c], wmax[3 * N + c]));
+            if constexpr (T::kScales) m = (m > 0.5f * kNeg ? m : 0.0f) * qs[c];
+            if constexpr (kAdd) m = m > 0.5f * kNeg ? m : 0.0f;
+            colmax[c] = m;
+          }
+        }
+        group_sync(wg);
+        if (tid < nq) {
+          const float* cm = colmax + tid * p.tq;
+          float sum = 0.0f;
+          for (int k = 0; k < p.tq; ++k) sum += cm[k];
+          out0[dl * out_step] = sum;
+        }
       }
     }
   }
@@ -661,27 +868,40 @@ inline const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-template <class T, int N>
+template <class T, int N, class V>
 int launch_n(const CUtensorMap& mq, const CUtensorMap& mg, const CUtensorMap& ms,
              const Params& p, int blocks, int smem, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      maxsim_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      maxsim_kernel<T, N, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  maxsim_kernel<T, N><<<blocks, kThreads, smem, stream>>>(mq, mg, ms, p);
+  maxsim_kernel<T, N, V><<<blocks, kThreads, smem, stream>>>(mq, mg, ms, p);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of one block of an instance under a plan, in bytes.
+template <class T, class V = Served>
+int smem_bytes(int n, int n_wg, int panels, int stages) {
+  const bool sum = V::kMask == kDots;
+  return smem_layout(n, n_wg, panels, stages, T::kScales, V::kSub,
+                     V::kMask == kAdditive ? kTileRows * 4 : 0, V::kReduce == kShared && !sum)
+      .total;
 }
 
 // Encodes the maps and launches the kernel on `stream`. `row_bytes` (a
 // multiple of 128, up to 512 for bf16 and 256 for int8) is the byte width
 // of a query or grid row; n, n_wg, dpb and stages are the caller's plan.
-// Returns 0, a cudaError_t, or a code at or above kEncodeFailed.
-template <class T>
-int launch(const void* queries, const void* grid, const void* scales, const void* lens_src,
+// `side` is the int8 scales [nd, td] or the additive mask [nd, side_cols]
+// (side_cols >= td, a multiple of 4: 16-byte rows for TMA); `lens_src` is
+// the bf16 doclens. Returns 0, a cudaError_t, or a code at or above
+// kEncodeFailed.
+template <class T, class V = Served>
+int launch(const void* queries, const void* grid, const void* side, const void* lens_src,
            const float* qscales, float* out, int q_n, int tq, int nd, int td, int row_bytes,
-           int n, int n_wg, int dpb, int stages, cudaStream_t stream) {
+           int n, int n_wg, int dpb, int stages, cudaStream_t stream, int side_cols = 0) {
   if (q_n <= 0 || nd <= 0 || td <= 0 || tq <= 0 || tq > n || n_wg < 1 || n_wg > kConsumers ||
       dpb < 1 || dpb > kMaxDocsPerBlock || stages < 2 || stages > kMaxStages ||
-      row_bytes <= 0 || row_bytes % kPanelBytes || (T::kScales && td % 8)) {
+      row_bytes <= 0 || row_bytes % kPanelBytes || (T::kScales && td % 8) ||
+      (V::kMask == kAdditive && (side_cols < td || side_cols % 4))) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -701,7 +921,7 @@ int launch(const void* queries, const void* grid, const void* scales, const void
   const int n_qgroups = (q_n + p.qpw - 1) / p.qpw;
   p.n_qblocks = (n_qgroups + n_wg - 1) / n_wg;
   const long long blocks = (long long)p.n_qblocks * ((nd + dpb - 1) / dpb);
-  const int smem = smem_layout(n, n_wg, p.panels, stages, T::kScales).total;
+  const int smem = smem_bytes<T, V>(n, n_wg, p.panels, stages);
   if (blocks > INT_MAX || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
 
   const CUtensorMapDataType type =
@@ -724,25 +944,29 @@ int launch(const void* queries, const void* grid, const void* scales, const void
         encode_map(&mg, type, 3, grid, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
     if (rc != 0) return rc;
   }
-  if (T::kScales) {
-    const cuuint64_t dims[2] = {(cuuint64_t)td, (cuuint64_t)nd};
-    const cuuint64_t strides[1] = {(cuuint64_t)td * 2};
+  if (T::kScales || V::kMask == kAdditive) {
+    // One 64-row box a tile: bf16 scales [nd, td] or the f32 mask [nd, side_cols].
+    const int cols = T::kScales ? td : side_cols;
+    const int elem = T::kScales ? 2 : 4;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)nd};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
     const cuuint32_t box[2] = {(cuuint32_t)kTileRows, 1};
-    const int rc = encode_map(&ms, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, scales, dims, strides,
-                              box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    const int rc = encode_map(
+        &ms, T::kScales ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+        side, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
     if (rc != 0) return rc;
   } else {
     ms = mg;  // not read
   }
   switch (n) {
     case 32:
-      return launch_n<T, 32>(mq, mg, ms, p, (int)blocks, smem, stream);
+      return launch_n<T, 32, V>(mq, mg, ms, p, (int)blocks, smem, stream);
     case 64:
-      return launch_n<T, 64>(mq, mg, ms, p, (int)blocks, smem, stream);
+      return launch_n<T, 64, V>(mq, mg, ms, p, (int)blocks, smem, stream);
     case 128:
-      return launch_n<T, 128>(mq, mg, ms, p, (int)blocks, smem, stream);
+      return launch_n<T, 128, V>(mq, mg, ms, p, (int)blocks, smem, stream);
     case 256:
-      return launch_n<T, 256>(mq, mg, ms, p, (int)blocks, smem, stream);
+      return launch_n<T, 256, V>(mq, mg, ms, p, (int)blocks, smem, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

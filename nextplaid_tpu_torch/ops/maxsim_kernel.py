@@ -17,7 +17,8 @@ warpgroup owns (from the columns the call really has), one or two
 warpgroups, the docs a block walks and the ring's depth within the shared
 memory a block may use.
 This module also builds the third source, csrc/maxsim_variants.cu (the
-variant sweep's kernel family; its wrapper is `ops.maxsim_variants`).
+variant sweep's kernel family on the same template; its wrapper is
+`ops.maxsim_variants`), and plans its launches (`plan_variant`).
 
 bf16 layout contract (as the JAX package's, with doclens flat):
   queries_flat [Q*Tq, d] bf16, padded query tokens are zero rows, so they
@@ -68,7 +69,7 @@ SOURCE_VARIANTS = CSRC / "maxsim_variants.cu"  # wrapper: ops/maxsim_variants.py
 SOURCES = (SOURCE, SOURCE_INT8, SOURCE_VARIANTS)
 HEADER_WGMMA = CSRC / "maxsim_wgmma.cuh"
 # Headers each source includes: their bytes are part of its build hash.
-HEADERS = {SOURCE: (HEADER_WGMMA,), SOURCE_INT8: (HEADER_WGMMA,), SOURCE_VARIANTS: ()}
+HEADERS = {src: (HEADER_WGMMA,) for src in SOURCES}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nextplaid_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -85,7 +86,8 @@ CONSUMERS = 2  # consumer warpgroups of a block
 TILE_ROWS = 64
 PANEL_BYTES = 128
 MAX_STAGES = 8
-MAX_DOCS_PER_BLOCK = 32
+MAX_DOCS_PER_BLOCK = 64
+SCRATCH_PAD = 8  # f32 past N in a row of the shared-memory reduction's scratch
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
 SM_COUNT = 132
 NEG = -1e30  # the int8 kernels' mask value (the Pallas kernel's NEG)
@@ -178,27 +180,59 @@ class LaunchPlan:
     n_wg: int  # warpgroups (query groups) a block takes: 1 or 2
     qpw: int  # whole queries a warpgroup owns: n // tq
     dpb: int  # docs a block walks
-    stages: int  # 64-row tiles in the shared-memory ring
+    stages: int  # stages in the shared-memory ring
     panels: int  # 128-byte panels of a row
     smem: int  # dynamic shared memory of a block, bytes
+    rows: int = TILE_ROWS  # grid rows a ring stage holds (64 or 128)
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def smem_bytes(n: int, n_wg: int, panels: int, stages: int, scales: bool) -> int:
+def smem_bytes(n: int, n_wg: int, panels: int, stages: int, scales: bool, sub: int = 1,
+               side: int = 0, scratch: bool = False) -> int:
     """Dynamic shared memory of one block (csrc/maxsim_wgmma.cuh's
-    `smem_layout`): the query columns, the tile ring (with 64 bf16 scales a
-    tile for int8), the per-warp and per-column maxima (and the query
-    scales for int8), the docs' lengths, the mbarriers, 1,024 bytes to align."""
+    `smem_layout`): the query columns, the tile ring of `sub` tiles a stage
+    (with a tile's side input: 64 bf16 scales for int8, `side` bytes
+    otherwise, 256 for the additive mask's f32), the shared-memory row
+    reduction's `scratch` of [n_wg][64][n + 8] f32, the per-warp and
+    per-column maxima (and the query scales for int8), the docs' lengths, the
+    mbarriers, 1,024 bytes to align."""
     total = n_wg * panels * n * PANEL_BYTES
-    total += stages * panels * TILE_ROWS * PANEL_BYTES
-    total += stages * TILE_ROWS * 2 if scales else 0
+    total += stages * sub * panels * TILE_ROWS * PANEL_BYTES
+    total += stages * sub * (TILE_ROWS * 2 if scales else side)
+    total += n_wg * TILE_ROWS * (n + SCRATCH_PAD) * 4 if scratch else 0
     total += CONSUMERS * 4 * n * 4 + CONSUMERS * n * 4
     total += CONSUMERS * n * 4 if scales else 0
     total += MAX_DOCS_PER_BLOCK * 4 + (2 * MAX_STAGES + 1) * 8
     return total + 1024
+
+
+def _pick_shape(q_n: int, tq: int, row_bytes: int, stage_bytes: int, fixed_bytes):
+    """(n, n_wg, stages) of a launch: of the shapes whose ring has at least 2
+    stages of `stage_bytes` beside `fixed_bytes(n, n_wg)`, the narrowest
+    that holds every query, two warpgroups before one; if none holds them
+    all, the one that holds the most. Shapes of up to 64 columns keep to half
+    an SM's shared memory, so that two blocks share it."""
+    if row_bytes <= 0 or row_bytes % PANEL_BYTES:
+        raise ValueError(f"row bytes {row_bytes} must be a multiple of {PANEL_BYTES}")
+    if not 0 < tq <= WGMMA_COLS[-1]:
+        raise ValueError(f"tq={tq} must be in 1..{WGMMA_COLS[-1]}")
+    shapes = []
+    for n in WGMMA_COLS:
+        for n_wg in (2, 1):
+            # The narrow instances are built for two blocks an SM.
+            limit = SMEM_LIMIT if n > 64 else SMEM_LIMIT // 2 - 1024
+            stages = min(MAX_STAGES, (limit - fixed_bytes(n, n_wg)) // stage_bytes)
+            if n >= tq and stages >= 2:
+                shapes.append((n, n_wg, stages))
+    if not shapes:
+        raise ValueError(f"no kernel shape fits tq={tq} at {row_bytes} bytes a row")
+    holding = [s for s in shapes if s[1] * (s[0] // tq) >= q_n]
+    if holding:
+        return min(holding, key=lambda s: (s[0] * s[1], -s[1]))
+    return max(shapes, key=lambda s: (s[1] * (s[0] // tq), s[1], s[2]))
 
 
 def plan_launch(q_n: int, tq: int, nd: int, row_bytes: int, scales: bool) -> LaunchPlan:
@@ -206,36 +240,13 @@ def plan_launch(q_n: int, tq: int, nd: int, row_bytes: int, scales: bool) -> Lau
     tokens against `nd` grid rows of `row_bytes` bytes (a multiple of 128).
 
     A warpgroup owns n >= tq columns holding n // tq whole queries, a block
-    one or two such groups. Of the shapes whose ring has at least 2 stages
-    in shared memory, the narrowest that holds every query wins (one query
-    does not pay for 512 columns), two warpgroups before one; if none holds
-    them all, the one that holds the most. Shapes of up to 64 columns keep
-    to half an SM's shared memory, so that two blocks share it and a call
-    with few columns still keeps many tiles in flight. The docs a block
-    walks start at 16 and halve until the launch has four blocks an SM or
-    one doc a block."""
-    if row_bytes <= 0 or row_bytes % PANEL_BYTES:
-        raise ValueError(f"row bytes {row_bytes} must be a multiple of {PANEL_BYTES}")
-    if not 0 < tq <= WGMMA_COLS[-1]:
-        raise ValueError(f"tq={tq} must be in 1..{WGMMA_COLS[-1]}")
+    one or two such groups, picked by `_pick_shape` (one query does not pay
+    for 512 columns). The docs a block walks start at 16 and halve until the
+    launch has four blocks an SM or one doc a block."""
     panels = row_bytes // PANEL_BYTES
     stage = panels * TILE_ROWS * PANEL_BYTES + (TILE_ROWS * 2 if scales else 0)
-    shapes = []
-    for n in WGMMA_COLS:
-        for n_wg in (2, 1):
-            # The narrow instances are built for two blocks an SM.
-            limit = SMEM_LIMIT if n > 64 else SMEM_LIMIT // 2 - 1024
-            free = limit - smem_bytes(n, n_wg, panels, 0, scales)
-            stages = min(MAX_STAGES, free // stage)
-            if n >= tq and stages >= 2:
-                shapes.append((n, n_wg, stages))
-    if not shapes:
-        raise ValueError(f"no kernel shape fits tq={tq} at {row_bytes} bytes a row")
-    holding = [s for s in shapes if s[1] * (s[0] // tq) >= q_n]
-    if holding:
-        n, n_wg, stages = min(holding, key=lambda s: (s[0] * s[1], -s[1]))
-    else:
-        n, n_wg, stages = max(shapes, key=lambda s: (s[1] * (s[0] // tq), s[1], s[2]))
+    n, n_wg, stages = _pick_shape(
+        q_n, tq, row_bytes, stage, lambda n, n_wg: smem_bytes(n, n_wg, panels, 0, scales))
     qpw = n // tq
     n_qblocks = _ceil_div(_ceil_div(q_n, qpw), n_wg)
     dpb = 16
@@ -243,6 +254,31 @@ def plan_launch(q_n: int, tq: int, nd: int, row_bytes: int, scales: bool) -> Lau
         dpb //= 2
     return LaunchPlan(n=n, n_wg=n_wg, qpw=qpw, dpb=dpb, stages=stages, panels=panels,
                       smem=smem_bytes(n, n_wg, panels, stages, scales))
+
+
+def plan_variant(q_n: int, tq: int, row_bytes: int, dpb: int, rows: int = TILE_ROWS,
+                 additive: bool = False, scratch: bool = False) -> LaunchPlan:
+    """The plan of one launch of the bf16 variant family
+    (csrc/maxsim_variants.cu): N, warpgroups and ring depth chosen as
+    `plan_launch` chooses them, for ring stages of `rows` grid rows (64 or
+    128), each 64-row tile with its 64 f32 mask values if `additive`, and,
+    with `scratch`, the shared-memory reduction's staging (at N 256 it fits
+    only one warpgroup, so the plan takes N 128 with two where both hold the
+    same queries). The docs a block walks are the caller's `dpb`, 1..64."""
+    if rows not in (TILE_ROWS, 2 * TILE_ROWS):
+        raise ValueError(f"rows a stage must be {TILE_ROWS} or {2 * TILE_ROWS}, got {rows}")
+    if not 1 <= dpb <= MAX_DOCS_PER_BLOCK:
+        raise ValueError(f"docs a block must be in 1..{MAX_DOCS_PER_BLOCK}, got {dpb}")
+    panels = row_bytes // PANEL_BYTES
+    sub = rows // TILE_ROWS
+    side = TILE_ROWS * 4 if additive else 0
+    stage = sub * (panels * TILE_ROWS * PANEL_BYTES + side)
+    n, n_wg, stages = _pick_shape(
+        q_n, tq, row_bytes, stage,
+        lambda n, n_wg: smem_bytes(n, n_wg, panels, 0, False, sub, side, scratch))
+    return LaunchPlan(n=n, n_wg=n_wg, qpw=n // tq, dpb=dpb, stages=stages, panels=panels,
+                      smem=smem_bytes(n, n_wg, panels, stages, False, sub, side, scratch),
+                      rows=rows)
 
 
 def maxsim_grid_scores_reference(

@@ -5,23 +5,28 @@ csrc/maxsim_variants.cu replaces the Pallas variants of
 `scripts/profile_kernel_variants.py` (`build(...)` over `kernel_iota`,
 `kernel_addmask`, `kernel_addflat`, `kernel_iota_scratch`,
 `kernel_addflat_fold`, `kernel_dotsonly`): the bf16 MaxSim of
-`ops.maxsim_kernel` with a DOC-MAJOR output [ND, Q], swept over
+`ops.maxsim_kernel` with a DOC-MAJOR output [ND, Q], as instances of the
+served kernels' wgmma/TMA template (csrc/maxsim_wgmma.cuh), swept over
   - the mask input: `mask="lens"` (doclens [ND] or [ND, 1] int32, compared
-    with the row index) or `mask="additive"` (an f32 mask of 0 / -1e30 per
-    token row, [ND, Td] or flat [ND*Td, 1]: one row-major layout serves both
-    shapes of the Pallas script, whose difference is a TPU lane/sublane
-    matter);
-  - the geometry `(docs per thread block, token rows per barrier)`, the
-    card's counterpart of the script's `dblk`/`sub`;
-  - the row reduction: `reduce="registers"` (per-doc max kept in the mma
-    accumulator layout, finished by warp shuffles) or `"shared"` (every
-    accumulator tile staged through shared memory), the counterparts of
-    concatenate / scratch / fold;
+    with the row index; a doc's walk stops at its length) or
+    `mask="additive"` (an f32 mask of 0 / -1e30 per token row, [ND, Td] or
+    flat [ND*Td, 1]: one row-major layout serves both shapes of the Pallas
+    script, whose difference is a TPU lane/sublane matter; every row of
+    every doc is walked, since the mask need not be a prefix);
+  - the geometry `(docs per thread block, grid rows a ring stage holds)`:
+    1..64 docs, 64 or 128 rows (one or two m64 products between two
+    mbarrier waits), the card's counterpart of the script's `dblk`/`sub`;
+  - the row reduction: `reduce="registers"` (per-doc max kept on the wgmma
+    accumulator's layout, folded by shuffles: the served fold) or
+    `"shared"` (every accumulator tile staged in shared memory and scanned
+    by column there), the counterparts of concatenate / scratch / fold;
   - `dots_only=True`, the probe: the same loads and tensor-core products
-    with a sum where the others take the max. Wrong by design, as
-    `kernel_dotsonly`: out[n, q] is the sum, over every token row of the
-    `geometry[0]` docs of n's block and every token of query q, of the
-    products; the mask input is not read.
+    with a sum in one accumulator where the others take the max. Wrong by
+    design, as `kernel_dotsonly`: out[n, q] is the sum, over every token row
+    of the `geometry[0]` docs of n's block and every token of query q, of
+    the products; the mask input is not read.
+N, the warpgroups and the ring's depth come from `plan_variant`
+(`ops.maxsim_kernel`); `variant_plan` gives a call's plan.
 
 Layout contract: queries_flat [Q*Tq, d] bf16 with zero rows for padded query
 tokens, grid [ND, Td, d] bf16. Output [ND, Q] f32. For every variant but
@@ -45,17 +50,20 @@ import torch.nn.functional as F
 
 from nextplaid_tpu_torch.ops.maxsim_kernel import (
     MAX_DIM,
+    MAX_DOCS_PER_BLOCK,
     MAX_TQ,
     NEG,
     SOURCE_VARIANTS,
+    LaunchPlan,
     build_library,
     maxsim_grid_scores_reference,
+    pad_bf16_inputs,
+    plan_variant,
 )
 
 MASKS = {"lens": 0, "additive": 1}
 REDUCES = {"registers": 0, "shared": 1}
-ROWS = (16, 32, 64)  # token rows per barrier the kernel is built for
-MAX_DOCS_PER_BLOCK = 64
+ROWS = (64, 128)  # grid rows a ring stage holds
 _DOTS = 2  # the kernel's mask code of the probe
 
 
@@ -63,8 +71,10 @@ _DOTS = 2  # the kernel's mask code of the probe
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(SOURCE_VARIANTS)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.maxsim_variants_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.maxsim_variants_scores.argtypes = [p, p, p, p] + [i] * 13 + [p]
     lib.maxsim_variants_scores.restype = i
+    lib.maxsim_variants_smem_bytes.argtypes = [i] * 7
+    lib.maxsim_variants_smem_bytes.restype = i
     lib.maxsim_variants_error_string.argtypes = [i]
     lib.maxsim_variants_error_string.restype = ctypes.c_char_p
     return lib
@@ -78,9 +88,24 @@ def _check_variant(mask: str, geometry: Tuple[int, int], reduce: str) -> None:
     dpb, rows = geometry
     if not 1 <= dpb <= MAX_DOCS_PER_BLOCK or rows not in ROWS:
         raise ValueError(
-            f"geometry (docs per block, rows per barrier) must be "
+            f"geometry (docs per block, rows a stage) must be "
             f"(1..{MAX_DOCS_PER_BLOCK}, one of {ROWS}), got {geometry!r}"
         )
+
+
+def variant_plan(q_n: int, tq: int, d: int, *, mask: str = "lens",
+                 geometry: Tuple[int, int] = (16, 64), reduce: str = "registers",
+                 dots_only: bool = False) -> LaunchPlan:
+    """The launch plan of one variant for `q_n` queries of `tq` tokens at
+    feature width `d` (padded, as the wrapper pads it, to whole 128-byte
+    panels)."""
+    _check_variant(mask, geometry, reduce)
+    d_k = -(-d // 64) * 64
+    return plan_variant(
+        q_n, tq, d_k * 2, geometry[0], geometry[1],
+        additive=not dots_only and mask == "additive",
+        scratch=not dots_only and reduce == "shared",
+    )
 
 
 def maxsim_variant_scores_reference(
@@ -90,7 +115,7 @@ def maxsim_variant_scores_reference(
     tq: int,
     *,
     mask: str = "lens",
-    geometry: Tuple[int, int] = (16, 32),
+    geometry: Tuple[int, int] = (16, 64),
     reduce: str = "registers",
     dots_only: bool = False,
     block_bytes: int = 256 << 20,
@@ -170,32 +195,35 @@ def _check_cuda_inputs(queries_flat, grid, mask_or_lens, tq, mask, dots_only) ->
             )
 
 
-def _launch(queries_flat, grid, mask_or_lens, tq, mask_code, geometry, reduce_code):
+def _launch(queries_flat, grid, mask_or_lens, tq, mask, geometry, reduce, dots_only):
     qf, d = queries_flat.shape
     nd, td, _ = grid.shape
     q_n = qf // tq
-    dpb, rows = geometry
     out = torch.empty(nd, q_n, dtype=torch.float32, device=grid.device)
     if q_n == 0 or nd == 0:
         return out
-    if nd > 65535 * dpb:
-        raise ValueError(f"{nd} grid rows exceed the kernel's {65535 * dpb} at {dpb} docs per block")
-    # The kernel takes tq in multiples of 8: pad each query with zero token
-    # rows, which add exactly 0 under the max and under the probe's sum.
-    tq8 = -(-tq // 8) * 8
-    if tq8 != tq:
-        queries_flat = F.pad(
-            queries_flat.view(q_n, tq, d), (0, 0, 0, tq8 - tq)
-        ).reshape(q_n * tq8, d)
-    lens_ptr = mask_or_lens.data_ptr() if mask_code == MASKS["lens"] else None
-    mask_ptr = mask_or_lens.data_ptr() if mask_code == MASKS["additive"] else None
+    plan = variant_plan(q_n, tq, d, mask=mask, geometry=geometry, reduce=reduce,
+                        dots_only=dots_only)
+    queries_flat, grid = pad_bf16_inputs(queries_flat, grid)
+    mask_code = _DOTS if dots_only else MASKS[mask]
+    side, mask_cols = None, td
+    if mask_code == MASKS["lens"]:
+        side = mask_or_lens.data_ptr()
+    elif mask_code == MASKS["additive"]:
+        # TMA reads the mask in rows of a multiple of 16 bytes: pad each row
+        # to a multiple of 4 values with the mask value itself.
+        mask_cols = -(-td // 4) * 4
+        addmask = mask_or_lens.reshape(nd, td)
+        if mask_cols != td:
+            addmask = F.pad(addmask, (0, mask_cols - td), value=NEG)
+        side = addmask.data_ptr()
     lib = _library()
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.maxsim_variants_scores(
-            queries_flat.data_ptr(), grid.data_ptr(), lens_ptr, mask_ptr,
-            out.data_ptr(), q_n, tq8, nd, td, d, mask_code, dpb, rows,
-            reduce_code, stream,
+            queries_flat.data_ptr(), grid.data_ptr(), side, out.data_ptr(),
+            q_n, tq, nd, td, mask_cols, grid.shape[2], mask_code, REDUCES[reduce],
+            plan.rows // 64, plan.n, plan.n_wg, plan.dpb, plan.stages, stream,
         )
     if err != 0:
         msg = lib.maxsim_variants_error_string(err).decode()
@@ -211,7 +239,7 @@ def maxsim_variant_scores(
     tq: int,
     *,
     mask: str = "lens",
-    geometry: Tuple[int, int] = (16, 32),
+    geometry: Tuple[int, int] = (16, 64),
     reduce: str = "registers",
     dots_only: bool = False,
 ) -> torch.Tensor:
@@ -227,10 +255,8 @@ def maxsim_variant_scores(
             reduce=reduce, dots_only=dots_only,
         )
     _check_cuda_inputs(queries_flat, grid, mask_or_lens, tq, mask, dots_only)
-    return _launch(
-        queries_flat, grid, mask_or_lens, tq,
-        _DOTS if dots_only else MASKS[mask], tuple(geometry), REDUCES[reduce],
-    )
+    return _launch(queries_flat, grid, mask_or_lens, tq, mask, tuple(geometry), reduce,
+                   dots_only)
 
 
 maxsim_variant_scores.launches = 0  # kernel launches since the last reset
@@ -240,23 +266,25 @@ maxsim_variant_scores.launches = 0  # kernel launches since the last reset
 # The sweep: its variants, its inputs and its matmul-only yardstick
 # ---------------------------------------------------------------------------
 
-# (name, mask, (docs per block, rows per barrier), reduce, dots_only): the
-# geometries of the Pallas sweep's list, with rows per barrier for `sub`.
+# (name, mask, (docs per block, rows a stage), reduce, dots_only): the docs
+# per block of the Pallas sweep's list; 64 rows a stage where its entry
+# multiplied 16 or 32 rows between synchronisations, 128 where 64 (and for
+# one of the two 16-doc lens entries, so that the 14 stay distinct).
 SWEEP_VARIANTS = (
-    ("lens d64 r64 reg", "lens", (64, 64), "registers", False),
-    ("lens d32 r32 reg", "lens", (32, 32), "registers", False),
-    ("lens d16 r32 reg", "lens", (16, 32), "registers", False),
-    ("lens d16 r16 reg", "lens", (16, 16), "registers", False),
-    ("lens d8  r16 reg", "lens", (8, 16), "registers", False),
-    ("add  d32 r32 reg", "additive", (32, 32), "registers", False),
-    ("add  d16 r32 reg", "additive", (16, 32), "registers", False),
-    ("add  d64 r64 reg", "additive", (64, 64), "registers", False),
-    ("add  d16 r16 shm", "additive", (16, 16), "shared", False),
-    ("add  d8  r16 shm", "additive", (8, 16), "shared", False),
-    ("lens d32 r32 shm", "lens", (32, 32), "shared", False),
-    ("lens d64 r64 shm", "lens", (64, 64), "shared", False),
-    ("dots d16 r32", "lens", (16, 32), "registers", True),
-    ("dots d64 r64", "lens", (64, 64), "registers", True),
+    ("lens d64 r128 reg", "lens", (64, 128), "registers", False),
+    ("lens d32 r64 reg", "lens", (32, 64), "registers", False),
+    ("lens d16 r64 reg", "lens", (16, 64), "registers", False),
+    ("lens d16 r128 reg", "lens", (16, 128), "registers", False),
+    ("lens d8  r64 reg", "lens", (8, 64), "registers", False),
+    ("add  d32 r64 reg", "additive", (32, 64), "registers", False),
+    ("add  d16 r64 reg", "additive", (16, 64), "registers", False),
+    ("add  d64 r128 reg", "additive", (64, 128), "registers", False),
+    ("add  d16 r64 shm", "additive", (16, 64), "shared", False),
+    ("add  d8  r64 shm", "additive", (8, 64), "shared", False),
+    ("lens d32 r64 shm", "lens", (32, 64), "shared", False),
+    ("lens d64 r128 shm", "lens", (64, 128), "shared", False),
+    ("dots d16 r64", "lens", (16, 64), "registers", True),
+    ("dots d64 r128", "lens", (64, 128), "registers", True),
 )
 SWEEP_SHAPE = dict(nd=5184, td=384, d=128, tq=32)  # the Pallas sweep's
 

@@ -1,19 +1,27 @@
 """Sweep the MaxSim kernel variants of nextplaid_tpu_torch on an NVIDIA GPU.
 
+    python3 scripts/profile_torch_kernel_variants.py [--check-only] [--reps 6]
+
 The counterpart of scripts/profile_kernel_variants.py: the same shape (5184
 docs x Td 384 x d 128, SWEEP_Q (64) queries x 32 tokens, every seventh doc
 empty, lengths 64-383 from numpy seed 0), grid and queries made on the card.
-Prints the masked-scan baseline (the plain PyTorch version), the
-one-big-dot floor (bf16 torch.matmul tiled over docs with a per-doc sum: the
-same contraction with no mask, max or epilogue) and one line per variant of
-csrc/maxsim_variants.cu with min / median ms by CUDA events and the largest
-error relative to the largest |score| of the plain version. A variant that
+Builds csrc/maxsim_variants.cu (instances of the wgmma/TMA template of
+csrc/maxsim_wgmma.cuh) and prints what ptxas reports for each instance
+(registers, spills, warnings). Then holds every variant against its plain
+version at the sweep's shape, with its launch plan (N, warpgroups, ring
+stages, rows a stage, docs a block); `--check-only` stops there, the right
+first call after an edit to the kernel. Otherwise prints the masked-scan
+baseline (the plain PyTorch version), the one-big-dot floor (bf16
+torch.matmul tiled over docs with a per-doc sum: the probe's function) and
+one line per variant with min / median ms by CUDA events, the share of its
+own bound (the valid rows' products at 989 TFLOP/s for MaxSim, every row's
+for the probe) and, for the probe, its ratio to the floor. A variant that
 fails to build, launch or agree raises.
 
-Run on the card: python3 scripts/profile_torch_kernel_variants.py
 VARIANTS=lens,dots keeps the variants whose name contains one of the tokens.
 """
 
+import argparse
 import os
 import statistics
 import subprocess
@@ -23,6 +31,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from nextplaid_tpu_torch.ops.maxsim_kernel import SOURCE_VARIANTS, build_library  # noqa: E402
 from nextplaid_tpu_torch.ops.maxsim_variants import (  # noqa: E402
     SWEEP_SHAPE,
     SWEEP_VARIANTS,
@@ -30,15 +39,15 @@ from nextplaid_tpu_torch.ops.maxsim_variants import (  # noqa: E402
     maxsim_variant_scores_reference,
     one_big_dot_floor,
     sweep_inputs,
+    variant_plan,
 )
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
-REPS = 6
 RTOL = 1e-4  # of the largest |score|: exact bf16 products, f32 sums reordered
 RTOL_DOTS = 1e-3  # the probe sums ~1e6 products per output in other orders
 
 
-def time_ms(fn, reps=REPS):
+def time_ms(fn, reps):
     """(min, median) device ms of `fn` over `reps` runs, by CUDA events."""
     fn()
     torch.cuda.synchronize()
@@ -54,7 +63,32 @@ def time_ms(fn, reps=REPS):
     return min(times), statistics.median(times)
 
 
+def ptxas_report(lib):
+    """One line per kernel instance of a build log: registers and spills,
+    then any warning."""
+    log = lib.with_suffix(".log").read_text().splitlines()
+    lines = []
+    for i, ln in enumerate(log):
+        if "Compiling entry function" in ln:
+            used = next((x.strip() for x in log[i : i + 4] if "Used" in x), "")
+            spill = next((x.strip() for x in log[i : i + 4] if "spill" in x), "")
+            inst = ln.split("maxsim_kernel")[-1].split("v14CUtensorMap")[0]  # mangled args
+            lines.append(f"ptxas {inst}: {used}; {spill}")
+    lines += [f"ptxas WARNING: {ln.strip()}" for ln in log
+              if "warning" in ln.lower() or "serialized" in ln.lower()]
+    return lines
+
+
+def plan_text(plan):
+    return (f"N {plan.n} x {plan.n_wg} wg, {plan.stages} stages of {plan.rows} rows, "
+            f"{plan.dpb} docs a block")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--check-only", action="store_true")
+    ap.add_argument("--reps", type=int, default=6)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_kernel_variants: CUDA is not available", file=sys.stderr)
         return 1
@@ -63,26 +97,25 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0], flush=True)
+    for line in ptxas_report(build_library(SOURCE_VARIANTS)):
+        print(line, flush=True)
     q_n = int(os.environ.get("SWEEP_Q", "64"))
     tq = SWEEP_SHAPE["tq"]
     qflat, grid, lens, addmask = sweep_inputs(device, q_n)
     valid_rows = int(lens.sum())
-    bound_ms = 1e3 * 2.0 * qflat.shape[0] * grid.shape[2] * valid_rows / PEAK_BF16_FLOPS
+    all_rows = grid.shape[0] * grid.shape[1]
+    flop = 2.0 * qflat.shape[0] * grid.shape[2]
+    bound_ms = 1e3 * flop * valid_rows / PEAK_BF16_FLOPS
+    probe_bound_ms = 1e3 * flop * all_rows / PEAK_BF16_FLOPS
     print(f"shape: {q_n} queries x {tq} tokens, grid {tuple(grid.shape)} bf16, "
-          f"{valid_rows} valid rows; bound {bound_ms:.3f} ms (valid rows' products at "
-          f"989 TFLOP/s)", flush=True)
-
-    want = {False: maxsim_variant_scores_reference(qflat, grid, lens, tq)}
-    tmin, tmed = time_ms(lambda: maxsim_variant_scores_reference(qflat, grid, lens, tq), reps=3)
-    print(f"{'plain masked scan':32s} {tmin:8.3f} ms min / {tmed:8.3f} med", flush=True)
-    tmin, tmed = time_ms(lambda: one_big_dot_floor(qflat, grid))
-    print(f"{'one-big-dot floor (torch.matmul)':32s} {tmin:8.3f} ms min / {tmed:8.3f} med",
+          f"{valid_rows} valid rows of {all_rows}; bound {bound_ms:.3f} ms (valid rows' "
+          f"products at 989 TFLOP/s), probe's bound {probe_bound_ms:.3f} ms (every row's)",
           flush=True)
 
     only = [tok for tok in os.environ.get("VARIANTS", "").split(",") if tok]
-    for name, mask, geometry, reduce, dots in SWEEP_VARIANTS:
-        if only and not any(tok in name for tok in only):
-            continue
+    chosen = [v for v in SWEEP_VARIANTS if not only or any(tok in v[0] for tok in only)]
+    want = {False: maxsim_variant_scores_reference(qflat, grid, lens, tq)}
+    for name, mask, geometry, reduce, dots in chosen:
         arg = addmask if mask == "additive" else lens
         kw = dict(mask=mask, geometry=geometry, reduce=reduce, dots_only=dots)
         ref_key = geometry[0] if dots else False
@@ -93,11 +126,26 @@ def main() -> int:
         ref = want[ref_key]
         rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-9)
         tol = RTOL_DOTS if dots else RTOL
-        if not rel <= tol:
+        if not (torch.isfinite(got).all() and rel <= tol):
             raise AssertionError(f"{name}: max relative error {rel} > {tol}")
-        tmin, tmed = time_ms(lambda: maxsim_variant_scores(qflat, grid, arg, tq, **kw))
-        print(f"{name:32s} {tmin:8.3f} ms min / {tmed:8.3f} med   maxrelerr={rel:.2e}",
-              flush=True)
+        plan = variant_plan(q_n, tq, grid.shape[2], **kw)
+        print(f"check {name:18s} maxrelerr={rel:.2e}  plan: {plan_text(plan)}", flush=True)
+    if args.check_only:
+        return 0
+
+    tmin, tmed = time_ms(lambda: maxsim_variant_scores_reference(qflat, grid, lens, tq), reps=3)
+    print(f"{'plain masked scan':32s} {tmin:8.3f} ms min / {tmed:8.3f} med", flush=True)
+    floor_min, floor_med = time_ms(lambda: one_big_dot_floor(qflat, grid), args.reps)
+    print(f"{'one-big-dot floor (torch.matmul)':32s} {floor_min:8.3f} ms min / {floor_med:8.3f} "
+          f"med", flush=True)
+    for name, mask, geometry, reduce, dots in chosen:
+        arg = addmask if mask == "additive" else lens
+        kw = dict(mask=mask, geometry=geometry, reduce=reduce, dots_only=dots)
+        tmin, tmed = time_ms(lambda: maxsim_variant_scores(qflat, grid, arg, tq, **kw), args.reps)
+        own = probe_bound_ms if dots else bound_ms
+        extra = f", {tmed / floor_med:.2f} x the floor" if dots else ""
+        print(f"{name:32s} {tmin:8.3f} ms min / {tmed:8.3f} med  {100 * own / tmed:5.1f}% of "
+              f"its bound {own:.3f} ms{extra}", flush=True)
     return 0
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from nextplaid_tpu_torch.ops import maxsim_kernel as mk
 from nextplaid_tpu_torch.ops import maxsim_variants as mv
 from nextplaid_tpu_torch.ops.maxsim_kernel import NEG, maxsim_grid_scores_reference
 from nextplaid_tpu_torch.ops.maxsim_variants import (
@@ -142,7 +143,7 @@ def test_plain_version_matches_pallas_variant(name, dblk, sub):
     _, _, mask, reduce = PALLAS_VARIANTS[name]
     arg = torch.from_numpy(lens) if mask == "lens" else torch.from_numpy(addmask)
     got = maxsim_variant_scores(
-        _bf16(qflat), _bf16(grid), arg, tq, mask=mask, geometry=(dblk, 16), reduce=reduce
+        _bf16(qflat), _bf16(grid), arg, tq, mask=mask, geometry=(dblk, 64), reduce=reduce
     ).numpy()
     assert got.shape == (nd, q_n)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
@@ -157,7 +158,7 @@ def test_plain_probe_matches_pallas_dotsonly(dblk, sub):
     want = _pallas_scores("kernel_dotsonly", qflat, grid, lens, addmask, tq, dblk, sub)
     got = maxsim_variant_scores(
         _bf16(qflat), _bf16(grid), torch.from_numpy(lens), tq,
-        geometry=(dblk, 16), dots_only=True,
+        geometry=(dblk, 64), dots_only=True,
     ).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=RTOL_DOTS * np.abs(want).max())
     # The definition, by numpy: block sums over rows and query tokens.
@@ -228,9 +229,77 @@ def test_cpu_tensors_do_not_launch_and_bad_variants_raise():
     maxsim_variant_scores(*args)
     assert maxsim_variant_scores.launches == before
     for bad in (dict(mask="iota"), dict(reduce="fold"), dict(geometry=(16, 48)),
-                dict(geometry=(0, 16)), dict(geometry=(65, 16))):
+                dict(geometry=(16, 16)), dict(geometry=(16, 32)), dict(geometry=(16, 256)),
+                dict(geometry=(0, 64)), dict(geometry=(65, 64))):
         with pytest.raises(ValueError):
             maxsim_variant_scores(*args, **bad)
+
+
+# --- the family's launch plan (pure Python) --------------------------------
+
+# Each sweep variant's plan at the sweep's shape (64 queries x 32 tokens,
+# d 128): (N, warpgroups, ring stages). The shared reduction's scratch does
+# not fit two warpgroups at N 256, so it takes N 128 with two.
+SWEEP_PLANS = {
+    "lens d64 r128 reg": (256, 2, 2), "lens d32 r64 reg": (256, 2, 5),
+    "lens d16 r64 reg": (256, 2, 5), "lens d16 r128 reg": (256, 2, 2),
+    "lens d8  r64 reg": (256, 2, 5), "add  d32 r64 reg": (256, 2, 5),
+    "add  d16 r64 reg": (256, 2, 5), "add  d64 r128 reg": (256, 2, 2),
+    "add  d16 r64 shm": (128, 2, 5), "add  d8  r64 shm": (128, 2, 5),
+    "lens d32 r64 shm": (128, 2, 5), "lens d64 r128 shm": (128, 2, 2),
+    "dots d16 r64": (256, 2, 5), "dots d64 r128": (256, 2, 2),
+}
+
+
+@pytest.mark.parametrize(
+    "name,mask,geometry,reduce,dots", SWEEP_VARIANTS, ids=[v[0] for v in SWEEP_VARIANTS]
+)
+def test_variant_plan_at_the_sweep_shape(name, mask, geometry, reduce, dots):
+    plan = mv.variant_plan(64, 32, 128, mask=mask, geometry=geometry, reduce=reduce,
+                           dots_only=dots)
+    assert (plan.n, plan.n_wg, plan.stages) == SWEEP_PLANS[name]
+    assert (plan.dpb, plan.rows, plan.qpw, plan.panels) == (geometry[0], geometry[1],
+                                                             plan.n // 32, 2)
+
+
+@pytest.mark.parametrize("rows", mv.ROWS)
+@pytest.mark.parametrize("additive,scratch", [(False, False), (True, False), (False, True),
+                                              (True, True)])
+def test_plan_variant_fits_shared_memory(additive, scratch, rows):
+    """Every plan holds whole queries, keeps the caller's docs a block, and
+    fits a block's 232,448 bytes (half of them at N <= 64) with a ring of 2
+    to 8 stages, as `smem_bytes` counts them. Rows of up to 256 bytes (d up
+    to 128) always have a plan; wider rows may not (two stages of 128 rows
+    of d 256 beside the scratch, or beside N 256, exceed the block), and then
+    the plan raises."""
+    sub, side = rows // 64, 256 if additive else 0
+    for row_bytes in (128, 256, 384, 512):
+        for tq in (1, 8, 20, 32, 33, 100, 128, 136, 200, 256):
+            for q_n in (1, 3, 9, 64, 320):
+                for dpb in (1, 8, 64):
+                    try:
+                        plan = mk.plan_variant(q_n, tq, row_bytes, dpb, rows, additive, scratch)
+                    except ValueError:
+                        assert row_bytes > 256
+                        continue
+                    assert plan.n in mk.WGMMA_COLS and plan.n >= tq
+                    assert plan.qpw == plan.n // tq >= 1 and plan.n_wg in (1, 2)
+                    assert (plan.dpb, plan.rows, plan.panels) == (dpb, rows, row_bytes // 128)
+                    assert 2 <= plan.stages <= mk.MAX_STAGES
+                    assert plan.smem == mk.smem_bytes(plan.n, plan.n_wg, plan.panels,
+                                                      plan.stages, False, sub, side, scratch)
+                    limit = mk.SMEM_LIMIT if plan.n > 64 else mk.SMEM_LIMIT // 2 - 1024
+                    assert plan.smem <= limit
+                    if scratch and plan.n == 256 and row_bytes >= 256:
+                        assert plan.n_wg == 1  # 2 x 64 x 264 f32 beside B does not fit
+
+
+def test_plan_variant_rejects_bad_geometries():
+    for args in ((4, 32, 256, 0, 64), (4, 32, 256, 65, 64), (4, 32, 256, 16, 32),
+                 (4, 32, 256, 16, 256), (4, 32, 100, 16, 64), (4, 257, 256, 16, 64),
+                 (4, 0, 256, 16, 64)):
+        with pytest.raises(ValueError):
+            mk.plan_variant(*args)
 
 
 def test_sweep_inputs_and_floor():
@@ -260,6 +329,24 @@ def cuda():
     return torch.device("cuda")
 
 
+def _card_check(cuda, qflat, grid, arg, tq, **kw):
+    """One launch of a variant on the card against its plain version there:
+    rtol 1e-5, atol 1e-4; the probe 1e-3 of its largest |sum|. Returns the
+    kernel's output on the host."""
+    args = (_bf16(qflat).to(cuda), _bf16(grid).to(cuda), torch.from_numpy(arg).to(cuda), tq)
+    before = mv.maxsim_variant_scores.launches
+    got = maxsim_variant_scores(*args, **kw)
+    torch.cuda.synchronize()
+    assert mv.maxsim_variant_scores.launches == before + 1
+    want = maxsim_variant_scores_reference(*args, **kw)
+    if kw.get("dots_only"):
+        atol, rtol = RTOL_DOTS_CARD * float(want.abs().max()), 0
+    else:
+        atol, rtol = ATOL, RTOL
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol, atol=atol)
+    return got.cpu().numpy()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "q_n,tq,nd,td,d",
@@ -274,16 +361,74 @@ def test_kernel_matches_plain_version(cuda, name, mask, geometry, reduce, dots,
     """Each variant of the kernel vs its plain version on the card: rtol
     1e-5, atol 1e-4; the probe 1e-3 of its largest |sum|."""
     qflat, grid, lens, addmask = _inputs(q_n * nd, q_n, tq, nd, td, d)
-    arg = torch.from_numpy(addmask if mask == "additive" else lens).to(cuda)
-    args = (_bf16(qflat).to(cuda), _bf16(grid).to(cuda), arg, tq)
-    kw = dict(mask=mask, geometry=geometry, reduce=reduce, dots_only=dots)
-    before = mv.maxsim_variant_scores.launches
-    got = maxsim_variant_scores(*args, **kw)
-    torch.cuda.synchronize()
-    assert mv.maxsim_variant_scores.launches == before + 1
-    want = maxsim_variant_scores_reference(*args, **kw)
+    _card_check(cuda, qflat, grid, addmask if mask == "additive" else lens, tq, mask=mask,
+                geometry=geometry, reduce=reduce, dots_only=dots)
+
+
+# (mask, reduce, dots_only) of each instance kind of the family.
+KINDS = [("lens", "registers", False), ("lens", "shared", False),
+         ("additive", "registers", False), ("additive", "shared", False),
+         ("lens", "registers", True)]
+KIND_IDS = ["lens-reg", "lens-shm", "add-reg", "add-shm", "dots"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", mv.ROWS)
+@pytest.mark.parametrize("kind", KINDS, ids=KIND_IDS)
+def test_kernel_64_docs_a_block_ragged_nd(cuda, kind, rows):
+    """64 docs a block over 130 docs: the last block holds 2."""
+    mask, reduce, dots = kind
+    qflat, grid, lens, addmask = _inputs(21, 3, 32, 130, 100, 128)
+    got = _card_check(cuda, qflat, grid, addmask if mask == "additive" else lens, 32,
+                      mask=mask, geometry=(64, rows), reduce=reduce, dots_only=dots)
     if dots:
-        atol, rtol = RTOL_DOTS_CARD * float(want.abs().max()), 0
-    else:
-        atol, rtol = ATOL, RTOL
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=rtol, atol=atol)
+        assert (got[128:] == got[128]).all() and (got[:64] == got[0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("td", [70, 304])
+@pytest.mark.parametrize("rows", mv.ROWS)
+@pytest.mark.parametrize("kind", KINDS, ids=KIND_IDS)
+def test_kernel_td_not_a_multiple_of_the_stage(cuda, kind, rows, td):
+    """Td 70 and 304: a ragged last tile, and (at 128 rows a stage) a last
+    stage of one tile; at Td 70 the additive mask's rows are padded to 72."""
+    mask, reduce, dots = kind
+    qflat, grid, lens, addmask = _inputs(22 + td, 5, 20, 37, td, 128)
+    _card_check(cuda, qflat, grid, addmask if mask == "additive" else lens, 20,
+                mask=mask, geometry=(8, rows), reduce=reduce, dots_only=dots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", mv.ROWS)
+@pytest.mark.parametrize("reduce", sorted(mv.REDUCES))
+def test_kernel_additive_mask_need_not_be_a_prefix(cuda, reduce, rows):
+    """On the card too the additive mask may hide any row; a doc with every
+    row hidden scores 0."""
+    q_n, tq, nd, td, d = 3, 16, 24, 150, 128
+    qflat, grid, _, _ = _inputs(23, q_n, tq, nd, td, d)
+    rng = np.random.default_rng(1)
+    hidden = rng.random((nd, td)) < 0.4
+    hidden[3] = True
+    addmask = np.where(hidden, NEG, 0.0).astype(np.float32)
+    got = _card_check(cuda, qflat, grid, addmask, tq, mask="additive", geometry=(4, rows),
+                      reduce=reduce)
+    assert (got[3] == 0).all()
+
+
+@pytest.mark.cuda
+def test_variant_smem_bytes_match_the_kernels_layout(cuda):
+    """The Python plan's shared-memory bytes are the CUDA side's, for every
+    instance kind of the family."""
+    fn = mv._library().maxsim_variants_smem_bytes
+    for mask, reduce, dots in KINDS:
+        mask_code = mv._DOTS if dots else mv.MASKS[mask]
+        side = 256 if mask == "additive" and not dots else 0
+        scratch = reduce == "shared" and not dots
+        for sub in (1, 2):
+            for n in mk.WGMMA_COLS:
+                for n_wg in (1, 2):
+                    for panels in (1, 2, 4):
+                        for stages in (2, 5, 8):
+                            assert fn(n, n_wg, panels, stages, mask_code, mv.REDUCES[reduce],
+                                      sub) == mk.smem_bytes(n, n_wg, panels, stages, False, sub,
+                                                            side, scratch)

@@ -250,12 +250,13 @@ def test_pad_bf16_inputs_keeps_scores(d, d_k):
 
 
 def test_build_tag_covers_the_shared_header(tmp_path, monkeypatch):
-    """An edit to csrc/maxsim_wgmma.cuh rebuilds both served kernels and
-    not the variant family."""
+    """An edit to csrc/maxsim_wgmma.cuh rebuilds both served kernels and the
+    variant family, all three instances of its template."""
     assert maxsim_kernel.HEADER_WGMMA.exists()
-    for src in (maxsim_kernel.SOURCE, maxsim_kernel.SOURCE_INT8):
+    for src in maxsim_kernel.SOURCES:
         assert maxsim_kernel.HEADER_WGMMA in maxsim_kernel.HEADERS[src]
         assert '#include "maxsim_wgmma.cuh"' in src.read_text()
+    assert "mma.sync" not in maxsim_kernel.SOURCE_VARIANTS.read_text()
     before = {src: maxsim_kernel.build_tag(src) for src in maxsim_kernel.SOURCES}
     edited = tmp_path / "maxsim_wgmma.cuh"
     edited.write_bytes(maxsim_kernel.HEADER_WGMMA.read_bytes() + b"\n// edited\n")
@@ -267,7 +268,7 @@ def test_build_tag_covers_the_shared_header(tmp_path, monkeypatch):
     after = {src: maxsim_kernel.build_tag(src) for src in maxsim_kernel.SOURCES}
     assert after[maxsim_kernel.SOURCE] != before[maxsim_kernel.SOURCE]
     assert after[maxsim_kernel.SOURCE_INT8] != before[maxsim_kernel.SOURCE_INT8]
-    assert after[maxsim_kernel.SOURCE_VARIANTS] == before[maxsim_kernel.SOURCE_VARIANTS]
+    assert after[maxsim_kernel.SOURCE_VARIANTS] != before[maxsim_kernel.SOURCE_VARIANTS]
 
 
 @pytest.mark.parametrize("seed", [0, 1])
