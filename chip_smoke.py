@@ -32,6 +32,15 @@ port's paths:
      preset), stage 4 through the bf16 MaxSim kernel on the transient union
      grid: QPS, batch-1 latency, recall@10 against the same oracle, and a
      batch's time stage by stage.
+  6. index mutations at SciFact scale, on the index of phase 2 (this slice's
+     path): served loads with append headroom (`capacity_factor=1.5,
+     grid_aware_capacity=True`) pinned bf16 and int8, ingest batches of 32
+     docs through `update_or_create_with_metadata` (buffer mode) and
+     `DeviceIndex.append_batch`, each checked against a fresh reload + pin;
+     a capacity growth (`_grow`); a centroid expansion (mode "expand");
+     FIFO eviction of the 100 oldest docs with `delete_with_options` (the
+     metadata store and FTS kept in sync); and the stale-IVF reroute of a
+     staged request, then `refresh_ivf` and staged recall.
 Each path's kernel launch counts are set to 0 just before it and read just
 after.
 
@@ -44,6 +53,7 @@ from __future__ import annotations
 
 import gc
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -99,6 +109,17 @@ STAGED_PASSES = 3
 STAGE4_TOL = 2e-2
 # The probe's sums hold ~1e6 products each, summed in other orders.
 PROBE_RTOL = 1e-3
+
+# Mutation phase: the API's serving headroom (nextplaid_tpu/api/state.py:117),
+# ingest batches of 32 docs (three fill the buffer to 96 < buffer_size 100),
+# FIFO eviction of the 100 oldest docs.
+MUT_CAPACITY = 1.5
+MUT_BATCH = 32
+MUT_BUFFERED_BATCHES = 3
+MUT_EVICT = 100
+# Appended index vs a fresh reload: the same rows decompressed from the same
+# codes, scored by the same kernel; scores within this fraction of the largest.
+MUT_RTOL = 1e-4
 
 
 def make_doclens(num_docs=5183, avg_len=290, seed=0):
@@ -413,8 +434,9 @@ def check_results(results, n, k=10):
 
 
 def scifact_phases(device, mk):
-    """PR 1's main path (bf16 pin) and the int8 pin of the same index.
-    Returns the two kernels' entries of the kernels line."""
+    """The first slice's main path (bf16 pin) and the int8 pin of the same index, then
+    the mutation phase on that index. Returns the two kernels' entries of
+    the kernels line and the mutation phase's numbers."""
     from nextplaid_tpu_torch.index import (
         DeviceIndex, IndexConfig, SearchParameters, create_index_from_device, search_batch,
     )
@@ -522,7 +544,10 @@ def scifact_phases(device, mk):
             if recall < floor:
                 raise AssertionError(f"{label} recall@10 {recall} < {floor}")
             entries.append((label, launches, max_err, kernel_ms, plain_ms, bound_ms, bound_by))
-        return entries
+        del pinned, unpinned, q_dev, oracle
+        gc.collect()
+        torch.cuda.empty_cache()
+        return entries, mutation_phase(device, mk, path, topics, queries)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -917,6 +942,284 @@ def staged_phase(full, device, mk, batches, queries, oracle):
             "staged_bound_by": bound_by, "staged_shape": list(grid.shape)}
 
 
+class _Messages(logging.Handler):
+    """Collects the messages of the records a logger passes it."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+TITLE_WORDS = ("retrieval", "protein", "vaccine", "climate", "genome", "neuron", "cohort")
+
+
+def new_docs(topics, n, seed, dim=128):
+    """`n` ingest docs: SciFact-shaped lengths (N(290, 40) clipped to 64-300),
+    tokens unit(topic + 0.08 noise) from the corpus's topics with a new seed,
+    as host arrays (the update entry points take numpy)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n_tok in make_doclens(n, seed=seed):
+        v = topics[rng.integers(0, len(topics), n_tok)] + 0.08 * rng.standard_normal((n_tok, dim))
+        out.append((v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32))
+    return out
+
+
+def doc_metadata(ids):
+    """One integer and one text field a doc; the text holds a token that
+    only this doc has (its id at ingest)."""
+    return [{"year": 1990 + i % 35, "title": f"uid{i} {TITLE_WORDS[i % len(TITLE_WORDS)]} study"}
+            for i in ids]
+
+
+def same_results(got, want, label):
+    """Bit-identical result lists (same tensors, same kernel)."""
+    if [(r.passage_ids, r.scores) for r in got] != [(r.passage_ids, r.scores) for r in want]:
+        raise AssertionError(f"{label}: results differ")
+
+
+def mutation_phase(device, mk, path, topics, queries):
+    """This slice's path at SciFact scale: ingest, in-place appends into the
+    pinned bf16 and int8 grids, capacity growth, centroid expansion, FIFO
+    eviction and the stale-IVF reroute, on the SciFact index at `path`.
+    Returns the two kernels' numbers of the phase."""
+    from nextplaid_tpu_torch import filtering
+    from nextplaid_tpu_torch.filtering import text_search
+    from nextplaid_tpu_torch.index import (
+        DeviceIndex, IndexConfig, SearchParameters, UpdateConfig, delete_with_options,
+        search_batch, search_batch_async, update_or_create_with_metadata,
+    )
+    from nextplaid_tpu_torch.index.exact import quantize_queries_int8
+    from nextplaid_tpu_torch.index.search import _pad_queries
+    from nextplaid_tpu_torch.index.update import find_outliers, load_buffer, load_cluster_threshold
+    from nextplaid_tpu_torch.storage.npy import IndexLayout, load_json, load_npy
+    from nextplaid_tpu_torch.utils.errors import UpdateError
+
+    layout = IndexLayout(path)
+    params = SearchParameters(top_k=10, stage1_precision="default")
+    oracle_params = SearchParameters(top_k=10, mode="exact", stage1_precision="highest")
+    n_eval = 64
+    n0 = load_json(layout.metadata)["num_documents"]
+    t0 = time.perf_counter()
+    filtering.create(path, doc_metadata(range(n0)), list(range(n0)))
+    text_search.index(path, doc_metadata(range(n0)), list(range(n0)))
+    print(f"mutations: metadata + FTS for {n0} docs in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def reload(dtype=None, capacity=1.0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = DeviceIndex.load(path, capacity_factor=capacity, grid_aware_capacity=capacity > 1.0)
+        if dtype is not None:
+            index = index.with_token_grid(dtype=dtype)
+            if index.token_grid is None or index.grid_is_int8 != (dtype == "int8"):
+                raise AssertionError(f"the {dtype} grid was not pinned")
+        torch.cuda.synchronize()
+        return index, time.perf_counter() - t0
+
+    def ingest(docs, first_id):
+        info = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = update_or_create_with_metadata(
+            docs, path, IndexConfig(nbits=4), UpdateConfig(),
+            metadata=doc_metadata(range(first_id, first_id + len(docs))), info_out=info)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if ids != list(range(first_id, first_id + len(docs))):
+            raise AssertionError(f"ingest returned ids {ids[:3]}... for first id {first_id}")
+        return info, ms
+
+    def append(index, encoded):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = index.append_batch(*encoded)
+        torch.cuda.synchronize()
+        if out is None:
+            raise AssertionError("append_batch could not append in place")
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def check_same(index, fresh, label, own_doc, own_id):
+        """Top-10 of the 320 queries equal a fresh reload's (tie rule), and
+        a query of a new doc's own tokens finds it first."""
+        got, want = search_batch(index, queries, params), search_batch(fresh, queries, params)
+        check_results(got, NUM_QUERIES)
+        tol = MUT_RTOL * max(max(abs(x) for x in r.scores) for r in want)
+        assert_same_topk(got, want, tol, label)
+        hit = search_batch(index, [own_doc[:32]], params)[0]
+        if hit.passage_ids[0] != own_id:
+            raise AssertionError(f"{label}: doc {own_id}'s own tokens found {hit.passage_ids[:3]}")
+
+    kb, k8 = mk.maxsim_grid_scores, mk.maxsim_grid_scores_int8i
+    kb.launches = k8.launches = 0
+    t_phase = time.perf_counter()
+    served, _ = reload("bf16", MUT_CAPACITY)
+    served8, _ = reload("int8", MUT_CAPACITY)
+    tight, _ = reload("bf16")
+    unpinned = DeviceIndex.load(path, capacity_factor=MUT_CAPACITY)
+    g, g8 = served.token_grid, served8.token_grid
+    print(f"mutations: served loads with capacity_factor {MUT_CAPACITY} (grid-aware): {n0} docs in "
+          f"{served.num_docs_padded} doc rows and {served.codes.shape[0]} token rows (without "
+          f"headroom {tight.num_docs_padded} and {tight.codes.shape[0]}); bf16 grid {tuple(g.shape)} = "
+          f"{g.numel() * 2 / 2**20:.1f} MiB; int8 grid {tuple(g8.shape)} + scales = "
+          f"{(g8.numel() + 2 * served8.token_scales.numel()) / 2**20:.1f} MiB", flush=True)
+
+    next_id = n0
+    appended = {}
+    for b in range(MUT_BUFFERED_BATCHES):
+        docs = new_docs(topics, MUT_BATCH, seed=100 + b)
+        old = served
+        if b == 0:
+            before = search_batch(old, queries[:n_eval], params)
+            pending = search_batch_async(old, queries[:n_eval], params)
+        info, disk_ms = ingest(docs, next_id)
+        if info["mode"] != "buffer":
+            raise AssertionError(f"batch {b + 1}: mode {info['mode']}, expected buffer")
+        served, app_ms = append(served, info["encoded"])
+        fresh, reload_s = reload("bf16")
+        check_same(served, fresh, f"batch {b + 1} bf16", docs[0], next_id)
+        print(f"mutations [batch {b + 1}, bf16]: mode buffer, {MUT_BATCH} docs "
+              f"({int(info['encoded'][2].sum())} tokens); update_or_create_with_metadata "
+              f"{disk_ms:.1f} ms, append_batch {app_ms:.2f} ms; yardstick load + with_token_grid "
+              f"{reload_s:.3f} s; top-10 of {NUM_QUERIES} queries = the fresh reload's, own-token "
+              f"query finds doc {next_id}", flush=True)
+        if b == 0:
+            # The pre-append object answers for its own docs, enqueued
+            # before the in-place append or searched after it, and takes
+            # no second append.
+            same_results(pending.result(), before, "pre-append object, enqueued before the append")
+            same_results(search_batch(old, queries[:n_eval], params), before,
+                         "pre-append object, searched after the append")
+            try:
+                old.append_batch(*info["encoded"])
+            except UpdateError:
+                pass
+            else:
+                raise AssertionError("the pre-append object took a second append over its successor's rows")
+            served8, app8_ms = append(served8, info["encoded"])
+            fresh8, reload8_s = reload("int8")
+            check_same(served8, fresh8, "batch 1 int8", docs[0], next_id)
+            print(f"mutations [batch 1, int8]: append_batch {app8_ms:.2f} ms; yardstick load + "
+                  f"with_token_grid(int8) {reload8_s:.3f} s; top-10 = the fresh reload's", flush=True)
+            rows_before = tight.num_docs_padded
+            tight, grow_ms = append(tight, info["encoded"])
+            if tight.num_docs_padded <= rows_before or tight.token_grid is None or tight.grid_is_int8:
+                raise AssertionError("the append without headroom did not grow a bf16 grid")
+            check_same(tight, fresh, "batch 1 after growth", docs[0], next_id)
+            print(f"mutations [batch 1, capacity_factor 1.0]: append_batch with _grow {grow_ms:.1f} ms "
+                  f"({rows_before} -> {tight.num_docs_padded} doc rows, grid "
+                  f"{tuple(tight.token_grid.shape)}); top-10 = the fresh reload's", flush=True)
+            del tight, fresh8
+
+            # Unpinned: a staged request on the stale IVF is rerouted; then
+            # refresh_ivf restores the staged route.
+            unp, _ = append(unpinned, info["encoded"])
+            oracle = search_batch(DeviceIndex.load(path), queries[:n_eval], oracle_params)
+            handler = _Messages()
+            log = logging.getLogger("nextplaid_tpu_torch.index.search")
+            log.addHandler(handler)
+            try:
+                p = search_batch_async(unp, queries[:n_eval], SearchParameters(**STAGED_COMMON, **STAGED_POINTS[0][1]))
+                rerouted = p.result()
+            finally:
+                log.removeHandler(handler)
+            if p.shapes is not None or not any("IVF is stale" in m for m in handler.messages):
+                raise AssertionError("a staged request on a stale IVF was not rerouted")
+            r_reroute = recall_at_10(rerouted, oracle)
+            if r_reroute < MIN_RECALL:
+                raise AssertionError(f"rerouted recall@10 {r_reroute} < {MIN_RECALL}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            refreshed = unp.refresh_ivf(path)
+            refresh_ms = 1e3 * (time.perf_counter() - t0)
+            if refreshed.ivf_stale:
+                raise AssertionError("refresh_ivf left the IVF stale")
+            recalls = []
+            for label, kw, recorded in STAGED_POINTS:
+                p = search_batch_async(refreshed, queries[:n_eval], SearchParameters(**STAGED_COMMON, **kw))
+                r = recall_at_10(p.result(), oracle)
+                if p.shapes is None or r < recorded - RECALL_SLACK:
+                    raise AssertionError(f"staged [{label}] after refresh_ivf: recall@10 {r}")
+                recalls.append(f"{label} {r:.4f}")
+            print(f"mutations [unpinned]: staged request on the stale IVF rerouted to exhaustive "
+                  f"search (warning logged), recall@10 {r_reroute:.4f}; refresh_ivf {refresh_ms:.1f} ms; "
+                  f"staged recall@10 vs the f32 oracle: {', '.join(recalls)}", flush=True)
+            del unp, refreshed, unpinned, oracle
+        next_id += MUT_BATCH
+    appended["bf16"], appended["int8"] = served, served8
+
+    # Batch 4: the buffer reaches buffer_size, so the update expands the
+    # centroids and re-indexes the buffered docs with the new ones.
+    docs = new_docs(topics, MUT_BATCH, seed=100 + MUT_BUFFERED_BATCHES)
+    k_before = load_json(layout.metadata)["num_partitions"]
+    n_out = len(find_outliers(np.concatenate(load_buffer(path) + docs),
+                              np.asarray(load_npy(layout.centroids), np.float32),
+                              load_cluster_threshold(path) ** 2))
+    info, expand_ms = ingest(docs, next_id)
+    if info["mode"] != "expand" or "encoded" in info:
+        raise AssertionError(f"batch 4: mode {info['mode']}, expected expand without an encoded batch")
+    k_after = load_json(layout.metadata)["num_partitions"]
+    served, pin_s = reload("bf16", MUT_CAPACITY)
+    oracle = search_batch(DeviceIndex.load(path), queries[:n_eval], oracle_params)
+    r_expand = recall_at_10(search_batch(served, queries[:n_eval], params), oracle)
+    hit = search_batch(served, [docs[-1][:32]], params)[0]
+    print(f"mutations [batch 4, expand]: {n_out} outlier tokens of {MUT_BUFFERED_BATCHES * MUT_BATCH} "
+          f"buffered + {MUT_BATCH} new docs; centroids {k_before} -> {k_after} (+{k_after - k_before}); "
+          f"update {expand_ms / 1e3:.2f} s; reload + pin {pin_s:.3f} s; recall@10 vs the f32 oracle "
+          f"{r_expand:.4f}; own-token query finds doc {hit.passage_ids[0]}", flush=True)
+    if k_after <= k_before or r_expand < MIN_RECALL or hit.passage_ids[0] != next_id + MUT_BATCH - 1:
+        raise AssertionError("centroid expansion: no centroid added, recall or own-doc check failed")
+
+    # FIFO eviction of the oldest docs: survivors shift down, metadata and
+    # FTS follow (not a suffix, so FTS is rebuilt).
+    n_before = served.num_documents
+    t0 = time.perf_counter()
+    n_del = delete_with_options(list(range(MUT_EVICT)), path)
+    delete_s = time.perf_counter() - t0
+    served, pin_s = reload("bf16", MUT_CAPACITY)
+    count = filtering.count(path)
+    survivor = MUT_EVICT + 50
+    fts_ids, _ = text_search.search(path, f"uid{survivor}", 5)
+    subset = filtering.where_condition(path, "year < ?", [2000])
+    sub_res = search_batch(served, queries[:n_eval], params, subset=subset)
+    in_subset = set(subset)
+    outside = sum(1 for r in sub_res for i in r.passage_ids if i not in in_subset)
+    oracle = search_batch(DeviceIndex.load(path), queries[:n_eval], oracle_params)
+    r_delete = recall_at_10(search_batch(served, queries[:n_eval], params), oracle)
+    print(f"mutations [evict {MUT_EVICT} oldest]: delete_with_options {delete_s:.2f} s; reload + pin "
+          f"{pin_s:.3f} s; {served.num_documents} docs, {count} metadata rows; FTS 'uid{survivor}' -> "
+          f"{fts_ids[:1]}; subset search over {len(subset)} docs: {outside} hits outside; recall@10 "
+          f"{r_delete:.4f}", flush=True)
+    if (n_del != MUT_EVICT or served.num_documents != n_before - MUT_EVICT or count != served.num_documents
+            or fts_ids[:1] != [survivor - MUT_EVICT] or outside or not all(r.passage_ids for r in sub_res)
+            or r_delete < MIN_RECALL):
+        raise AssertionError("eviction: counts, FTS, subset search or recall check failed")
+
+    launches = {"bf16": kb.launches, "int8": k8.launches}
+    print(f"mutations: phase {time.perf_counter() - t_phase:.1f} s; kernel launches bf16 "
+          f"{launches['bf16']}, int8 {launches['int8']}", flush=True)
+    if not all(launches.values()):
+        raise AssertionError(f"the mutation phase launched a kernel no time: {launches}")
+
+    # Each kernel against its plain version on the grids the appends wrote.
+    q_arr, _ = _pad_queries(queries[:n_eval], served.dim)
+    q_dev = torch.from_numpy(q_arr.reshape(-1, served.dim)).to(device)
+    tq = q_arr.shape[1]
+    a16 = appended["bf16"]
+    lens = torch.zeros(a16.token_grid.shape[0], dtype=torch.int32, device=device)
+    lens[: a16.num_docs_padded] = a16.doclens
+    err16 = check_kernel(kb, mk.maxsim_grid_scores_reference, (q_dev.to(torch.bfloat16), a16.token_grid, lens, tq),
+                         f"bf16 on the appended grid {tuple(a16.token_grid.shape)}, {n_eval}q")
+    qi8, qs = quantize_queries_int8(q_dev)
+    a8 = appended["int8"]
+    err8 = check_kernel(k8, mk.maxsim_grid_scores_int8i_reference, (qi8, qs, a8.token_grid, a8.token_scales, tq),
+                        f"int8 on the appended grid {tuple(a8.token_grid.shape)}, {n_eval}q")
+    return {"bf16": {"mutation_launches": launches["bf16"], "mutation_max_abs_err": err16},
+            "int8": {"mutation_launches": launches["int8"], "mutation_max_abs_err": err8}}
+
+
 def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms, bound_ms, bound_by):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -976,26 +1279,28 @@ def main() -> int:
 
     # Phase 4: the variant sweep (path B of the third slice).
     variants = variants_phase(device, mv, mk)
-    # Phases 5-6: SciFact scale, bf16 and int8 pins.
-    (bf16, _) = scifact_phases(device, mk)
+    # Phases 5-6: SciFact scale, bf16 and int8 pins; then this slice's path,
+    # mutations of that index.
+    (bf16, _), mutation = scifact_phases(device, mk)
     # Phases 7-8: grid-only int8 serving at scale, then the third slice's main
     # path: staged search over the same corpus's full index.
     int8, staged = grid_only_phase(device, mk)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # Phase 9: the kernels line, then the device line. The bf16 kernel's
-    # launches are the SciFact path's plus the staged path's; its ms, bound and
-    # plain ms are the SciFact pass's, the staged_* keys the stage-4 shape's.
+    # launches are the SciFact path's, the staged path's and the mutation
+    # phase's; its ms, bound and plain ms are the SciFact pass's, the staged_*
+    # keys the stage-4 shape's. The int8 kernel's are the grid-only path's
+    # and the mutation phase's.
     bf16_entry = kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:])
-    bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged)
-    bf16_entry["launches"] += staged["staged_launches"]
-    print(json.dumps({"kernels": [
-        bf16_entry,
-        kernel_entry("maxsim_grid_scores_int8i", "nextplaid_tpu_torch/csrc/maxsim_int8.cu",
-                     "nextplaid_tpu/ops/maxsim_kernel.py:150", *int8),
-        variants,
-    ]}), flush=True)
+    bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged, **mutation["bf16"])
+    bf16_entry["launches"] += staged["staged_launches"] + mutation["bf16"]["mutation_launches"]
+    int8_entry = kernel_entry("maxsim_grid_scores_int8i", "nextplaid_tpu_torch/csrc/maxsim_int8.cu",
+                              "nextplaid_tpu/ops/maxsim_kernel.py:150", *int8)
+    int8_entry.update(grid_only_launches=int8_entry["launches"], **mutation["int8"])
+    int8_entry["launches"] += mutation["int8"]["mutation_launches"]
+    print(json.dumps({"kernels": [bf16_entry, int8_entry, variants]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -2,8 +2,10 @@
 
 A multi-vector (late-interaction / ColBERT) search engine: PLAID-style index
 build (k-means, 2/4-bit residual codec, IVF, next-plaid's on-disk NPY+JSON
-format) and exact search over a pinned bf16 token grid through a
-hand-written CUDA MaxSim kernel for Hopper (sm_90a).
+format), exact search over a pinned bf16 or int8 token grid through
+hand-written CUDA MaxSim kernels for Hopper (sm_90a), the staged PLAID
+pipeline, and index mutations (update, in-place device append, delete) with
+the SQLite metadata and FTS5 store they keep in sync.
 
 The JAX package `nextplaid_tpu` stays beside it as the reference; this
 package imports neither it nor jax. Entry points take a `device` argument
@@ -19,3 +21,9 @@ __version__ = "0.1.0"
 
 from nextplaid_tpu_torch.index.config import IndexConfig, SearchParameters  # noqa: F401
 from nextplaid_tpu_torch.index.container import DeviceIndex  # noqa: F401
+from nextplaid_tpu_torch.index.delete import delete_with_options  # noqa: F401
+from nextplaid_tpu_torch.index.update import (  # noqa: F401
+    UpdateConfig,
+    update_or_create,
+    update_or_create_with_metadata,
+)

@@ -32,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,7 +42,7 @@ from nextplaid_tpu_torch.index.config import Metadata
 from nextplaid_tpu_torch.ops import codec as codec_ops
 from nextplaid_tpu_torch.storage.npy import IndexLayout, load_json, load_npy
 from nextplaid_tpu_torch.utils.device import DeviceLike, resolve_device
-from nextplaid_tpu_torch.utils.errors import StorageError
+from nextplaid_tpu_torch.utils.errors import StorageError, UpdateError
 
 # Padding of the doc and token axes, as in the JAX package.
 PAD_DOCS = 8
@@ -85,10 +85,12 @@ def _grid_bytes_for(rows: int, max_doclen: int, dim: int, dtype: str) -> int:
     return rows * _grid_td_for(max_doclen, dtype) * per_tok
 
 
-def _padded_doc_rows(ndocs: int) -> int:
-    """Doc rows after padding: +1 sentinel slot (doclen 0), rounded up to
-    PAD_DOCS."""
-    return _round_up(ndocs + 1, PAD_DOCS)
+def _padded_doc_rows(ndocs: int, doc_capacity: int = 0) -> int:
+    """Doc rows after padding: +1 sentinel slot (doclen 0), or `doc_capacity`
+    rows when that is more (headroom for in-place appends), rounded up to
+    PAD_DOCS. One rule for `from_host` and `plan_capacity_factor`, so
+    headroom planning predicts the pinning outcome."""
+    return _round_up(max(ndocs + 1, doc_capacity), PAD_DOCS)
 
 
 def _grid_rows_for(nd_pad: int, dtype: str = "bf16") -> int:
@@ -101,6 +103,31 @@ def _grid_rows_for(nd_pad: int, dtype: str = "bf16") -> int:
 def _to_tensor(x: np.ndarray, dtype: torch.dtype, device: torch.device):
     # A copy: loaded arrays are read-only memory maps.
     return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _pad_to(t: torch.Tensor, n: int, edge: bool = False) -> torch.Tensor:
+    """`t` with its leading axis zero- (or edge-) padded to length n; `t`
+    itself when it is already that long."""
+    if t.shape[0] >= n:
+        return t
+    out = torch.zeros((n, *t.shape[1:]), dtype=t.dtype, device=t.device)
+    if edge and t.shape[0]:
+        out[t.shape[0]:] = t[-1]
+    out[: t.shape[0]] = t
+    return out
+
+
+class _AppendTail:
+    """Doc count of the newest index made by `append_batch` in a family of
+    DeviceIndex objects that share codes, residuals, doclens and offsets
+    (each made from another by `dataclasses.replace`: pinned and unpinned,
+    refreshed and stale, grown and not). None before the family's first
+    append."""
+
+    __slots__ = ("n_docs",)
+
+    def __init__(self) -> None:
+        self.n_docs: Optional[int] = None
 
 
 @dataclass
@@ -154,6 +181,15 @@ class DeviceIndex:
     # Host-resident compressed corpus for the refinement rerank
     # (`load_grid_only(refine="host")`).
     refine_host: Optional["HostRefineData"] = None
+    # True after `append_batch` until `refresh_ivf`: the IVF lacks the
+    # appended docs, so the staged route reroutes to exhaustive search.
+    ivf_stale: bool = False
+    # Shared by every object `dataclasses.replace` makes from this one, so
+    # that only an index at the family's newest count may append: an older
+    # one would write over rows that a successor already serves.
+    append_tail: _AppendTail = field(
+        default_factory=_AppendTail, repr=False, compare=False
+    )
 
     @property
     def num_documents(self) -> int:
@@ -293,6 +329,195 @@ class DeviceIndex:
         return dataclasses.replace(self, token_grid=grid, token_scales=scales)
 
     # ------------------------------------------------------------------
+    # Incremental append (serving ingest)
+    # ------------------------------------------------------------------
+    def append_batch(
+        self,
+        codes: np.ndarray,
+        residuals: np.ndarray,
+        doclens: np.ndarray,
+    ) -> Optional["DeviceIndex"]:
+        """Append encoded documents on the device: O(batch) host-to-device
+        traffic instead of a full reload and re-pin.
+
+        `codes` / `residuals` / `doclens` are a batch encoded against the
+        index's current centroids (`update`'s `info_out["encoded"]` in buffer
+        mode). The capacity rule is the JAX package's: when `num_documents +
+        round_up(batch docs, 256) + 1` exceeds the doc rows or `num_embeddings
+        + round_up(batch tokens, 2048)` the token rows, `_grow` doubles the
+        capacity first, so padded shapes (and with them grid rows and kernel
+        launch plans) equal the JAX package's after any append sequence.
+
+        Design: writes are in place. The JAX package's append is functional;
+        here the batch's codes, residuals, doclens and doc offsets, and its
+        grid rows (decompressed by `decompress_windows`; bf16-rounded, or
+        quantized by `quantize_tokens_int8` into the doc-major int8 grid and
+        its scales) are slice-assigned at the live counts, into tensors that
+        this index and the returned one share. This index still answers for
+        its own documents: every score path masks by the object's own
+        `num_documents`, and a search enqueued on it before the append is
+        ahead of the writes in stream order. Only an index at the newest
+        count of the objects that share these tensors (`append_tail`) may
+        append: an older one, or a sibling made beside it by
+        `with_token_grid` or `refresh_ivf`, would write over rows that the
+        successor serves, so it raises UpdateError. The JAX
+        package's `_write_int8_groups` (its token-interleaved 128-doc groups)
+        has no counterpart: this package's int8 grid is doc-major, so a row
+        is written where it lies.
+
+        The IVF is not updated: the result is marked `ivf_stale` until
+        `refresh_ivf`. Returns None when a new document is longer than the
+        pinned grid's token axis (the caller reloads); raises UpdateError on
+        a grid-only index."""
+        if self.grid_only:
+            raise UpdateError(
+                "grid-only index is immutable; reload with DeviceIndex.load "
+                "to append"
+            )
+        nd, ne = self.num_documents, self.num_embeddings
+        tail = self.append_tail
+        if tail.n_docs is not None and tail.n_docs != nd:
+            raise UpdateError(
+                f"this index ({nd} docs) shares its tensors with a successor "
+                f"of {tail.n_docs} docs made by append_batch; append to the "
+                "newest index"
+            )
+        doclens = np.asarray(doclens, np.int64)
+        bdocs = int(doclens.shape[0])
+        btok = int(doclens.sum())
+        if bdocs == 0:
+            return self
+        codes, residuals = np.asarray(codes), np.asarray(residuals)
+        if codes.shape[0] != btok or residuals.shape[0] != btok:
+            raise ValueError(
+                f"batch shapes disagree: {codes.shape[0]} codes / "
+                f"{residuals.shape[0]} residuals vs doclens sum {btok}"
+            )
+        if self.token_grid is not None and int(doclens.max()) > self.grid_token_axis():
+            return None  # longer than the grid's token axis: reload
+
+        index = self
+        bdocs_pad = _round_up(bdocs, 256)
+        btok_pad = _round_up(btok, 2048)
+        if (
+            nd + bdocs_pad + 1 > index.num_docs_padded
+            or ne + btok_pad > index.codes.shape[0]
+        ):
+            index = index._grow(
+                doc_capacity=max(2 * index.num_docs_padded, nd + bdocs_pad + 2),
+                token_capacity=max(2 * index.codes.shape[0], ne + btok_pad),
+            )
+        dev = index.device
+        new_codes = torch.from_numpy(codes.astype(np.int32)).to(dev)
+        new_res = torch.from_numpy(np.ascontiguousarray(residuals, np.uint8)).to(dev)
+        lens = torch.from_numpy(doclens.astype(np.int32)).to(dev)
+        index.codes[ne : ne + btok] = new_codes
+        index.residuals[ne : ne + btok] = new_res
+        index.doclens[nd : nd + bdocs] = lens
+        # Offsets over the batch's padded doc window, as the JAX package
+        # writes them: past the real docs they repeat the new total.
+        lens_pad = torch.zeros(bdocs_pad, dtype=torch.int32, device=dev)
+        lens_pad[:bdocs] = lens
+        index.doc_offsets[nd + 1 : nd + 1 + bdocs_pad] = index.doc_offsets[nd] + torch.cumsum(
+            lens_pad, 0, dtype=torch.int32
+        )
+
+        if index.token_grid is not None:
+            td = index.token_grid.shape[1]
+            starts = torch.zeros(bdocs, dtype=torch.int64, device=dev)
+            starts[1:] = torch.cumsum(lens[:-1], 0)
+            t_ar = torch.arange(td, device=dev)
+            for s in range(0, bdocs, GRID_BUILD_TILE):
+                sl = slice(s, s + GRID_BUILD_TILE)
+                emb = decompress_windows(
+                    new_codes, new_res, starts[sl], lens[sl], td,
+                    index.centroids, index.bucket_weights, index.nbits,
+                )
+                rows = slice(nd + s, nd + s + emb.shape[0])
+                if index.token_scales is None:
+                    index.token_grid[rows] = emb.to(torch.bfloat16)
+                else:
+                    q, sc = quantize_tokens_int8(emb, t_ar[None, :] < lens[sl, None])
+                    index.token_grid[rows] = q
+                    index.token_scales[rows] = sc
+        out = dataclasses.replace(
+            index,
+            n_docs=nd + bdocs,
+            n_emb=ne + btok,
+            max_doclen=max(index.max_doclen, int(doclens.max())),
+            ivf_stale=True,
+        )
+        tail.n_docs = out.num_documents
+        return out
+
+    def _grow(self, doc_capacity: int, token_capacity: int) -> "DeviceIndex":
+        """Re-pad the capacity arrays and rebuild the pinned grid at the new
+        rows (rare). The new grid is built while the old one is alive, so
+        for a moment both are held; when the grown bf16 grid no longer fits
+        the pin budget, the auto policy downgrades it to int8, then to
+        unpinned, with a warning."""
+        nd_pad_new = max(_round_up(doc_capacity, PAD_DOCS), self.num_docs_padded)
+        nvec_new = max(_round_up(token_capacity, PAD_TOKENS), self.codes.shape[0])
+        grown = dataclasses.replace(
+            self,
+            codes=_pad_to(self.codes, nvec_new),
+            residuals=_pad_to(self.residuals, nvec_new),
+            doclens=_pad_to(self.doclens, nd_pad_new),
+            doc_offsets=_pad_to(self.doc_offsets, nd_pad_new + 1, edge=True),
+            token_grid=None,
+            token_scales=None,
+        )
+        if self.token_grid is not None:
+            dtype = "int8" if self.token_scales is not None else "bf16"
+            pinned = grown.with_token_grid(dtype=dtype)
+            if pinned.token_grid is None and dtype == "bf16":
+                # The doubled bf16 grid is over the pin budget: the auto
+                # path's downgrade (bf16 -> int8, with its warning ->
+                # unpinned).
+                pinned = grown.with_token_grid(dtype="auto")
+            grown = pinned
+            if grown.token_grid is None:
+                budget_mb = int(os.environ.get("NEXT_PLAID_PIN_BUDGET_MB", "4096"))
+                logging.getLogger(__name__).warning(
+                    "capacity growth dropped the pinned token grid: %s "
+                    "grid needs %d MB > NEXT_PLAID_PIN_BUDGET_MB=%d; "
+                    "serving falls back to the unpinned scan (large "
+                    "latency regression). Raise the budget or shard "
+                    "across chips.",
+                    dtype,
+                    grown.grid_bytes(dtype) >> 20,
+                    budget_mb,
+                )
+        return grown
+
+    def refresh_ivf(self, index_path: str) -> "DeviceIndex":
+        """The index with its IVF (and posting statistics) re-read from disk:
+        the staged pipeline's catch-up after appends. The result is no longer
+        stale."""
+        if self.grid_only:
+            raise UpdateError(
+                "grid-only index has no IVF; reload with DeviceIndex.load"
+            )
+        layout = IndexLayout(index_path)
+        ivf = np.asarray(load_npy(layout.ivf), np.int32)
+        ivf_lengths = np.asarray(load_npy(layout.ivf_lengths), np.int64)
+        k = self.num_centroids
+        ivf_offsets = np.zeros(k + 1, np.int32)
+        np.cumsum(ivf_lengths[:k], out=ivf_offsets[1:])
+        nnz = int(ivf.shape[0])
+        nnz_pad = max(_round_up(nnz, PAD_TOKENS), PAD_TOKENS)
+        ivf_p = np.full(nnz_pad, self.num_docs_padded - 1, np.int32)
+        ivf_p[:nnz] = ivf
+        return dataclasses.replace(
+            self,
+            ivf_offsets=_to_tensor(ivf_offsets, torch.int32, self.device),
+            ivf_doc_ids=_to_tensor(ivf_p, torch.int32, self.device),
+            max_posting_len=int(ivf_lengths.max()) if nnz else 0,
+            posting_mass_prefix=_posting_mass_prefix(ivf_lengths[:k]),
+            ivf_stale=False,
+        )
+
+    # ------------------------------------------------------------------
     # Construction
     # ------------------------------------------------------------------
     @classmethod
@@ -308,10 +533,14 @@ class DeviceIndex:
         bucket_weights: np.ndarray,
         avg_residual: np.ndarray,
         nbits: int,
+        doc_capacity: int = 0,
+        token_capacity: int = 0,
         device: DeviceLike = None,
     ) -> "DeviceIndex":
         """Pad host arrays as the JAX package does and stage them on
-        `device` ("cuda" when None)."""
+        `device` ("cuda" when None). `doc_capacity` / `token_capacity`
+        reserve rows past the live counts that `append_batch` fills in
+        place. At 0 (the default) the shapes are the live counts padded."""
         device = resolve_device(device)
         ndocs = int(doclens.shape[0])
         nvec = int(codes.shape[0])
@@ -323,8 +552,8 @@ class DeviceIndex:
             )
 
         # +1 so the sentinel slot (doclen 0) is always in bounds.
-        ndocs_pad = _padded_doc_rows(ndocs)
-        nvec_pad = max(_round_up(nvec, PAD_TOKENS), PAD_TOKENS)
+        ndocs_pad = _padded_doc_rows(ndocs, doc_capacity)
+        nvec_pad = max(_round_up(max(nvec, token_capacity), PAD_TOKENS), PAD_TOKENS)
         nnz = int(ivf_doc_ids.shape[0])
         nnz_pad = max(_round_up(nnz, PAD_TOKENS), PAD_TOKENS)
 
@@ -449,23 +678,102 @@ class DeviceIndex:
             else _to_tensor(np.asarray(bucket_lens).reshape(-1), torch.int32, device),
         )
 
+    @staticmethod
+    def plan_capacity_factor(
+        n_docs: int,
+        max_doclen: int,
+        dim: int,
+        requested: float,
+        budget_mb: Optional[int] = None,
+        dtype: Optional[str] = None,
+    ) -> float:
+        """Shrink append headroom when it would degrade the pinning outcome.
+
+        The pinned grid is capacity-sized (appends write into its reserved
+        rows in place), so headroom rows count in `grid_bytes` and can flip
+        `with_token_grid`'s budget decision from bf16 to int8 or to unpinned
+        for rows that hold no documents. Returns `requested` when the dtype
+        outcome matches a headroom-free load; otherwise warns and returns
+        1.0 (the first append then pays one capacity growth instead of every
+        query paying degraded scoring)."""
+        if requested <= 1.0 or n_docs == 0:
+            return max(requested, 1.0)
+        if budget_mb is None:
+            budget_mb = int(os.environ.get("NEXT_PLAID_PIN_BUDGET_MB", "4096"))
+        if dtype is None:
+            dtype = os.environ.get("NEXT_PLAID_PIN_DTYPE", "auto")
+        if dtype not in ("bf16", "int8"):
+            dtype = "auto"
+        budget = budget_mb << 20
+
+        def outcome(rows: int) -> str:
+            def fits(dt: str) -> bool:
+                return _grid_bytes_for(rows, max_doclen, dim, dt) <= budget
+
+            if dtype == "auto":
+                if fits("bf16"):
+                    return "bf16"
+                return "int8" if fits("int8") else "none"
+            return dtype if fits(dtype) else "none"
+
+        def rows(factor: float) -> int:
+            cap = int(n_docs * factor) + 2 if factor > 1.0 else 0
+            return _padded_doc_rows(n_docs, cap)
+
+        plain, with_headroom = outcome(rows(1.0)), outcome(rows(requested))
+        if with_headroom == plain:
+            return requested
+        logging.getLogger(__name__).warning(
+            "append headroom (capacity_factor=%.2f) would change the "
+            "token-grid pinning outcome from %s to %s; loading without "
+            "headroom to preserve scoring precision (the first append "
+            "will pay a one-time capacity growth instead)",
+            requested,
+            plain,
+            with_headroom,
+        )
+        return 1.0
+
     @classmethod
-    def load(cls, index_path: str, device: DeviceLike = None) -> "DeviceIndex":
+    def load(
+        cls,
+        index_path: str,
+        capacity_factor: float = 1.0,
+        grid_aware_capacity: bool = False,
+        device: DeviceLike = None,
+    ) -> "DeviceIndex":
         """Load an index directory (next-plaid `MmapIndex::load`,
-        src/index.rs:1026) onto `device` ("cuda" when None)."""
+        src/index.rs:1026) onto `device` ("cuda" when None).
+
+        `capacity_factor` > 1 reserves append headroom: a serving process
+        that expects ingest loads with e.g. 1.5 so the first batches do not
+        trigger a capacity growth (a re-pad and a grid rebuild).
+        `grid_aware_capacity` drops the headroom when it would change the
+        grid's pinning outcome (`plan_capacity_factor`)."""
         device = resolve_device(device)
         h = load_host_arrays(index_path)
+        doclens, codes = h["doclens"], h["codes"]
+        f = max(capacity_factor, 1.0)
+        if f > 1.0 and grid_aware_capacity:
+            f = cls.plan_capacity_factor(
+                n_docs=int(doclens.shape[0]),
+                max_doclen=int(doclens.max()) if doclens.size else 0,
+                dim=int(h["centroids"].shape[1]),
+                requested=f,
+            )
         return cls.from_host(
             centroids=h["centroids"],
-            codes=h["codes"],
+            codes=codes,
             residuals=h["residuals"],
-            doclens=h["doclens"],
+            doclens=doclens,
             ivf_lengths=h["ivf_lengths"],
             ivf_doc_ids=h["ivf"],
             bucket_cutoffs=h["bucket_cutoffs"],
             bucket_weights=h["bucket_weights"],
             avg_residual=h["avg_residual"],
             nbits=h["meta"].nbits,
+            doc_capacity=int(len(doclens) * f) + 2 if f > 1.0 else 0,
+            token_capacity=int(len(codes) * f) if f > 1.0 else 0,
             device=device,
         )
 

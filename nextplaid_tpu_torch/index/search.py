@@ -44,9 +44,10 @@ the lower doc id as the JAX package's stable sorts do.
 
 PyTorch runs eagerly, so batches need no padding to compile-friendly
 shapes: Q is the number of queries and Tq their longest length rounded up
-to 32. The RQ stage 1 and the stale-IVF reroute of the JAX package belong to
-modules that are not ported yet (ROADMAP.md); a grid-only index raises
-SearchError on the staged route, as in the JAX package.
+to 32. The RQ stage 1 of the JAX package belongs to a module that is not
+ported yet (ROADMAP.md); a grid-only index raises SearchError on the staged
+route, and an index whose IVF is stale after `append_batch` is rerouted to
+exhaustive search with a warning, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -861,6 +862,15 @@ def search_batch_async(
             "resident); use mode='exact'/'auto' or reload with "
             "DeviceIndex.load for staged search"
         )
+    if not exact_eligible and index.ivf_stale:
+        # Appends leave the staged pipeline's IVF stale (the pinned serving
+        # path never reads it); exhaustive scoring is the correct, slower
+        # answer until refresh_ivf.
+        logging.getLogger(__name__).warning(
+            "IVF is stale after device appends; routing to exhaustive "
+            "search (call DeviceIndex.refresh_ivf to restore staged mode)"
+        )
+        exact_eligible = True
 
     q_arr, q_mask = _pad_queries(queries, index.dim)
     subset_t = None

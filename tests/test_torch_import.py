@@ -43,7 +43,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, nextplaid_tpu_torch, nextplaid_tpu_torch.index, "
         "nextplaid_tpu_torch.ops, nextplaid_tpu_torch.ops.maxsim_kernel, "
-        "nextplaid_tpu_torch.ops.maxsim_variants, nextplaid_tpu_torch.index.search\n"
+        "nextplaid_tpu_torch.ops.maxsim_variants, nextplaid_tpu_torch.index.search, "
+        "nextplaid_tpu_torch.filtering, nextplaid_tpu_torch.filtering.text_search, "
+        "nextplaid_tpu_torch.index.update, nextplaid_tpu_torch.index.delete, "
+        "nextplaid_tpu_torch.index.embeddings\n"
         "bad = [m for m in sys.modules if m in ('jax', 'nextplaid_tpu') or "
         "m.startswith(('jax.', 'nextplaid_tpu.'))]\n"
         "print(bad)\n"
@@ -80,6 +83,23 @@ def test_build_without_device_raises(no_cuda, tmp_path):
         create_index(docs, str(tmp_path / "a"), IndexConfig(nbits=2))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         create_index_from_device(torch.from_numpy(docs[0]), [4], str(tmp_path / "b"))
+
+
+def test_update_without_device_raises(no_cuda, tmp_path):
+    from nextplaid_tpu_torch.index.update import (
+        UpdateConfig, find_outliers, update, update_or_create_with_metadata,
+    )
+
+    docs = [np.eye(4, 8, dtype=np.float32)]
+    path = str(tmp_path / "a")
+    create_index(docs * 3, path, IndexConfig(nbits=2), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        update(docs, path, UpdateConfig(start_from_scratch=0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        update_or_create_with_metadata(docs, str(tmp_path / "b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        find_outliers(docs[0], docs[0], 0.5)
+    assert update(docs, path, UpdateConfig(start_from_scratch=0), device="cpu") == [3]
 
 
 def test_device_setup_turns_tf32_off(monkeypatch):
