@@ -41,6 +41,21 @@ port's paths:
      FIFO eviction of the 100 oldest docs with `delete_with_options` (the
      metadata store and FTS kept in sync); and the stale-IVF reroute of a
      staged request, then `refresh_ivf` and staged recall.
+  7. text to a searchable index, after the mutations and before the
+     megascale build: the ColBERT encoder at GTE-ModernColBERT-v1's widths
+     (22 layers, hidden 768, random weights from seed 0, bf16) held against
+     its f32 forward on the CPU, and its quantized forward against full
+     precision; 5,183 documents of 280 words, from a whitespace tokenizer
+     over a synthetic 50,368-word vocabulary, through `encode_documents`;
+     `create_index_streamed` (nbits 4) in chunks of 1,024 docs, interrupted
+     at chunk 3 and resumed byte-equal to an uninterrupted build; load +
+     bf16 pin; 320 encoded excerpt queries through `search_batch`, recall@10
+     against the f32 oracle; the BERT family's throughput at
+     answerai-colbert-small's widths.
+The megascale path also loads its host arrays twice with the merge cache
+forced on (a native merge that stores the cache, then a hit), both held
+against numpy's concatenation; the native host library is built from
+native/nextplaid_host.cpp with g++ at the start.
 Each path's kernel launch counts are set to 0 just before it and read just
 after.
 
@@ -51,6 +66,8 @@ when CUDA is unavailable or any phase fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import filecmp
 import gc
 import json
 import logging
@@ -582,6 +599,7 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
         print(f"grid-only build: {meta.num_documents} docs, {meta.num_embeddings} tokens, "
               f"K {meta.num_partitions}, nbits 2; create_index_streamed {build_s:.2f} s",
               flush=True)
+        host_load_check(path)
 
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -672,15 +690,18 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
         torch.cuda.empty_cache()
 
         # The f32 exhaustive oracle on the first batch.
+        # host_load_check left the merge cache: this load reads it.
         t0 = time.perf_counter()
-        full = DeviceIndex.load(path)
+        with merge_cache_flag("1"):
+            full = DeviceIndex.load(path)
         oracle = search_batch(full, batches[0], SearchParameters(
             top_k=10, mode="exact", stage1_precision="highest"))
         torch.cuda.synchronize()
         oracle_s = time.perf_counter() - t0
         r_ref, r_raw = recall_at_10(refined, oracle), recall_at_10(unrefined, oracle)
         print(f"grid-only recall@10 vs the f32 exhaustive scan on {MEGA_BATCH} queries: "
-              f"refined {r_ref:.4f}, unrefined {r_raw:.4f} (oracle load + scan {oracle_s:.2f} s)",
+              f"refined {r_ref:.4f}, unrefined {r_raw:.4f} (oracle load from the merge cache + scan "
+              f"{oracle_s:.2f} s)",
               flush=True)
         if r_ref < MIN_RECALL or r_raw < MIN_RECALL_INT8:
             raise AssertionError(f"grid-only recall@10 refined {r_ref} < {MIN_RECALL} or "
@@ -693,6 +714,66 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
         return (launches, max_err, kernel_ms, plain_ms, bound_ms, bound_by), staged
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def merge_cache_flag(value):
+    """Set NEXT_PLAID_MERGE_CACHE for a load, so that the load takes one
+    stated path ("1": cache hit, else native merge + cache store), and put
+    the caller's setting back after it."""
+    flag = os.environ.get("NEXT_PLAID_MERGE_CACHE")
+    os.environ["NEXT_PLAID_MERGE_CACHE"] = value
+    try:
+        yield
+    finally:
+        if flag is None:
+            del os.environ["NEXT_PLAID_MERGE_CACHE"]
+        else:
+            os.environ["NEXT_PLAID_MERGE_CACHE"] = flag
+
+
+def host_load_check(path):
+    """The host side of a load on the megascale index, with the merge cache
+    forced on: the first `load_host_arrays` merges the chunks natively and
+    stores the cache beside the index, the second is a cache hit; both, and
+    the native merge itself, equal numpy's concatenation of the chunks."""
+    from nextplaid_tpu_torch.index.container import load_host_arrays
+    from nextplaid_tpu_torch.storage import merge_cache, native
+    from nextplaid_tpu_torch.storage.npy import IndexLayout, load_json
+
+    layout = IndexLayout(path)
+    n_chunks = load_json(layout.metadata)["num_chunks"]
+    code_paths = [str(layout.chunk_codes(i)) for i in range(n_chunks)]
+    res_paths = [str(layout.chunk_residuals(i)) for i in range(n_chunks)]
+    with merge_cache_flag("1"):
+        t0 = time.perf_counter()
+        merged = load_host_arrays(path)
+        merge_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cached = load_host_arrays(path)
+        hit_s = time.perf_counter() - t0
+    if merge_cache.load_merged(layout.root, code_paths, res_paths) is None:
+        raise AssertionError("load_host_arrays stored no merge cache")
+    t0 = time.perf_counter()
+    codes = np.concatenate([np.load(p) for p in code_paths])
+    residuals = np.concatenate([np.load(p) for p in res_paths])
+    numpy_s = time.perf_counter() - t0
+    packed_dim = residuals.shape[1]
+    equal = (
+        np.array_equal(native.merge_chunk_payloads(code_paths, codes.dtype), codes)
+        and np.array_equal(native.merge_chunk_payloads(res_paths, np.uint8, (packed_dim,)), residuals)
+        and all(np.array_equal(h["codes"], codes.astype(np.int32))
+                and np.array_equal(h["residuals"], residuals) for h in (merged, cached))
+    )
+    cache_gb = sum(os.path.getsize(os.path.join(path, "merged", n))
+                   for n in ("codes.npy", "residuals.npy")) / 1e9
+    print(f"load host: {n_chunks} chunks, {codes.nbytes / 1e9:.3f} GB of codes and "
+          f"{residuals.nbytes / 1e9:.3f} GB of residuals; load_host_arrays merged natively "
+          f"and stored the cache ({cache_gb:.3f} GB) in {merge_s:.2f} s, then a cache hit in "
+          f"{hit_s:.3f} s; numpy's concatenation {numpy_s:.2f} s; native merge == numpy: "
+          f"{equal}", flush=True)
+    if not equal:
+        raise AssertionError("the native merge or the merge cache differs from numpy's concatenation")
 
 
 def variants_phase(device, mv, mk):
@@ -1220,6 +1301,363 @@ def mutation_phase(device, mk, path, topics, queries):
             "int8": {"mutation_launches": launches["int8"], "mutation_max_abs_err": err8}}
 
 
+# Encoder phase: GTE-ModernColBERT-v1's published widths (its config.json on
+# the Hugging Face hub: ModernBERT-base), random weights from seed 0.
+GTE_WIDTHS = dict(
+    model_type="modernbert", vocab_size=50368, hidden_size=768, num_hidden_layers=22,
+    num_attention_heads=12, intermediate_size=1152, local_attention=128,
+    global_attn_every_n_layers=3, global_rope_theta=160_000.0, local_rope_theta=10_000.0,
+    norm_eps=1e-5, hidden_act="gelu", max_position_embeddings=8192, projection_dim=128,
+)
+# The BERT family at scripts/profile_encoder.py:35-40's widths
+# (answerai-colbert-small-v1: 12 layers, hidden 384, 6 heads, ff 1536).
+BERT_WIDTHS = dict(
+    model_type="bert", vocab_size=30522, hidden_size=384, num_hidden_layers=12,
+    num_attention_heads=6, intermediate_size=1536, max_position_embeddings=512,
+    projection_dim=96,
+)
+ENC_DOCS = 5183
+ENC_WORDS = 280
+ENC_QUERIES = 320
+ENC_QUERY_WORDS = 20
+ENC_BATCH = 64
+ENC_CHUNK_DOCS = 1024
+ENC_INTERRUPT_AT = 3  # the chunk iterator raises when asked for this chunk
+ENC_CHECK_DOCS = 16
+ENC_BERT_DOCS = 2048
+ENC_TOPICS = 1024  # vocabulary topics a document draws most of its words from
+# Least per-token cosine of the card's bf16 forward against the CPU's f32 one
+# on the same weights: tests/test_torch_encoder.py's bound on the bf16-vs-f32
+# gap (BF16_GAP_MIN_COS).
+ENC_MIN_COS_BF16 = 0.999
+# Quantized against full-precision forward: tests/test_encoder.py:376's bound.
+ENC_MIN_COS_INT8 = 0.99
+
+
+class WhitespaceTokenizer:
+    """Pure-Python whitespace tokenizer over a synthetic vocabulary of
+    `vocab_size` entries: the special tokens, two punctuation marks and the
+    words "w0", "w1", ...; unknown words map to [UNK]. `encode` adds [CLS]
+    and [SEP] when asked (the card has no `tokenizers`)."""
+
+    SPECIAL = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "[Q]", "[D]", ".", ",")
+
+    def __init__(self, vocab_size):
+        words = list(self.SPECIAL) + [f"w{i}" for i in range(vocab_size - len(self.SPECIAL))]
+        self.vocab = {w: i for i, w in enumerate(words)}
+        self.n_words = vocab_size - len(self.SPECIAL)
+
+    def token_to_id(self, token):
+        return self.vocab.get(token)
+
+    def encode(self, text, add_special_tokens=True):
+        unk = self.vocab["[UNK]"]
+        ids = [self.vocab.get(w, unk) for w in text.split()]
+        if add_special_tokens:
+            return [self.vocab["[CLS]"], *ids, self.vocab["[SEP]"]]
+        return ids
+
+
+def colbert_config(tok, embedding_dim):
+    from nextplaid_tpu_torch.encoder import ColbertConfig
+
+    return ColbertConfig(
+        query_prefix="[Q] ", document_prefix="[D] ", query_length=32, document_length=300,
+        embedding_dim=embedding_dim, mask_token_id=tok.vocab["[MASK]"],
+        pad_token_id=tok.vocab["[PAD]"], skiplist_words=[".", ","],
+        uses_token_type_ids=False,
+    )
+
+
+def make_texts(n_docs, n_words, vocab_words, seed=0, n_topics=ENC_TOPICS):
+    """`n_docs` documents of `n_words` words: each draws 3/4 of its words
+    from its topic's 256 words and the rest from the whole vocabulary under
+    a Zipf law (so common words recur everywhere), with a punctuation mark
+    every 20 words."""
+    rng = np.random.default_rng(seed)
+    topic_words = rng.integers(0, vocab_words, (n_topics, 256))
+    zipf = 1.0 / np.arange(1, vocab_words + 1)
+    zipf /= zipf.sum()
+    texts = []
+    for t in rng.integers(0, n_topics, n_docs):
+        from_topic = rng.random(n_words) < 0.75
+        ids = np.where(from_topic, topic_words[t, rng.integers(0, 256, n_words)],
+                       rng.choice(vocab_words, n_words, p=zipf))
+        words = [f"w{i}" for i in ids]
+        for j in range(19, n_words, 20):
+            words[j] += " ."
+        texts.append(" ".join(words))
+    return texts
+
+
+def excerpt_queries(texts, n, n_words, seed=1):
+    """`n` queries of `n_words` consecutive words, each from one document.
+    Returns (queries, source doc ids)."""
+    rng = np.random.default_rng(seed)
+    sources = rng.choice(len(texts), n, replace=False)
+    out = []
+    for d in sources:
+        words = texts[d].split()
+        s = int(rng.integers(0, len(words) - n_words))
+        out.append(" ".join(words[s : s + n_words]))
+    return out, sources
+
+
+def per_token_cos(a, b, valid):
+    """Least cosine between rows of [B, L, dim] a and b where `valid`."""
+    a, b = a.double(), b.double()
+    cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)).clamp_min(1e-12)
+    return float(cos[valid].min())
+
+
+def forward_ms(model, ids, attn, reps=5):
+    with torch.inference_mode():
+        return time_ms(lambda: model(ids, attn), reps)
+
+
+def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BERT_WIDTHS,
+                  n_queries=ENC_QUERIES, chunk_docs=ENC_CHUNK_DOCS, bert_docs=ENC_BERT_DOCS):
+    """Text to a searchable index on the card: the ColBERT encoder at
+    GTE-ModernColBERT-v1's widths (the card's bf16 forward against the
+    CPU's f32 one; the quantized forward against full precision, in f32
+    on the card and as shipped, bf16 + int8, against the CPU's f32), the
+    corpus encoded, a streamed build interrupted and resumed (byte-equal to
+    an uninterrupted one, written chunks skipped, another nbits refused),
+    load + bf16 pin, encoded queries searched through the bf16 kernel with
+    recall@10 against the f32 oracle; then the BERT family's throughput.
+    Returns the bf16 kernel's launches in the phase and its largest
+    difference from the plain version on the encoded grid."""
+    from nextplaid_tpu_torch.encoder import BackboneConfig, Colbert, ColbertModel, init_random_params
+    from nextplaid_tpu_torch.encoder.model import quantize_dense_params
+    from nextplaid_tpu_torch.index import (
+        DeviceIndex, IndexConfig, SearchParameters, create_index_streamed, search_batch,
+    )
+    from nextplaid_tpu_torch.index.build import DeviceChunk
+    from nextplaid_tpu_torch.index.search import _pad_queries
+    from nextplaid_tpu_torch.utils.errors import StorageError
+
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    try:
+        bcfg = BackboneConfig(**widths)
+        tok = WhitespaceTokenizer(bcfg.vocab_size)
+        t0 = time.perf_counter()
+        params = init_random_params(bcfg, seed=0)
+        init_s = time.perf_counter() - t0
+        enc = Colbert(config=colbert_config(tok, bcfg.projection_dim), backbone_config=bcfg,
+                      tokenizer=tok, params=params, batch_size=ENC_BATCH, device=device)
+        texts = make_texts(n_docs, ENC_WORDS, tok.n_words)
+
+        # The card's bf16 forward against the CPU's f32 one, same weights.
+        ids_np, attn_np, _, _ = enc._prepare(texts[:ENC_CHECK_DOCS], is_query=False)
+        ids, attn = torch.from_numpy(ids_np), torch.from_numpy(attn_np)
+        cpu = ColbertModel(bcfg, compute_dtype=torch.float32, device="cpu")
+        cpu.load_state_dict(params)
+        with torch.inference_mode():
+            want = cpu(ids, attn)
+            got = enc.model(ids.to(device), attn.to(device)).cpu()
+        del cpu
+        valid = attn.bool()
+        cos_bf16 = per_token_cos(got, want, valid)
+        # The quantized forward against the full-precision one, both f32 on
+        # the card (tests/test_encoder.py:376's comparison).
+        full = ColbertModel(bcfg, compute_dtype=torch.float32, device=device)
+        full.load_state_dict(params)
+        quant = ColbertModel(bcfg, compute_dtype=torch.float32, quantized=True, device=device)
+        quant.load_state_dict(quantize_dense_params(params))
+        with torch.inference_mode():
+            cos_int8 = per_token_cos(quant(ids.to(device), attn.to(device)).cpu(),
+                                     full(ids.to(device), attn.to(device)).cpu(), valid)
+        del full, quant
+        # The quantized model that is timed and shipped (bf16 compute, int8
+        # dense products) against the CPU's f32 full-precision forward.
+        qenc = Colbert(config=colbert_config(tok, bcfg.projection_dim), backbone_config=bcfg,
+                       tokenizer=tok, params=params, batch_size=ENC_BATCH, quantized=True,
+                       device=device)
+        with torch.inference_mode():
+            cos_shipped = per_token_cos(qenc.model(ids.to(device), attn.to(device)).cpu(),
+                                        want, valid)
+        print(f"encoder [GTE-ModernColBERT-v1 widths, {bcfg.num_hidden_layers} layers, hidden "
+              f"{bcfg.hidden_size}, random weights]: init {init_s:.2f} s; {ENC_CHECK_DOCS} docs x "
+              f"{ids.shape[1]} tokens, least per-token cosine card bf16 vs CPU f32 "
+              f"{cos_bf16:.6f} (bound {ENC_MIN_COS_BF16}), int8 vs f32 on the card "
+              f"{cos_int8:.6f}, card bf16 + int8 vs CPU f32 {cos_shipped:.6f} (bound "
+              f"{ENC_MIN_COS_INT8} each)", flush=True)
+        if (cos_bf16 < ENC_MIN_COS_BF16 or cos_int8 < ENC_MIN_COS_INT8
+                or cos_shipped < ENC_MIN_COS_INT8):
+            raise AssertionError(f"encoder forward cosines {cos_bf16}, {cos_int8}, "
+                                 f"{cos_shipped} below bounds")
+
+        # The forward alone at a full batch, by CUDA events; then the corpus.
+        ids_np, attn_np, _, _ = enc._prepare(texts[:ENC_BATCH], is_query=False)
+        ids_b, attn_b = torch.from_numpy(ids_np).to(device), torch.from_numpy(attn_np).to(device)
+        fwd_ms = forward_ms(enc.model, ids_b, attn_b)
+        fwd_q_ms = forward_ms(qenc.model, ids_b, attn_b)
+        del params
+        enc.encode_documents(texts[: 2 * ENC_BATCH])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embs = enc.encode_documents(texts)
+        encode_s = time.perf_counter() - t0
+        n_batches = -(-n_docs // ENC_BATCH)
+        host_share = max(0.0, 1.0 - n_batches * fwd_ms / (1e3 * encode_s))
+        n_sub = min(n_docs, 16 * ENC_BATCH)
+        qenc.encode_documents(texts[: 2 * ENC_BATCH])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_embs = qenc.encode_documents(texts[:n_sub])
+        q_rate = n_sub / (time.perf_counter() - t0)
+        del qenc
+        doclens = np.asarray([e.shape[0] for e in embs], np.int64)
+        total = int(doclens.sum())
+        if (any(e.shape[1] != bcfg.projection_dim or not np.isfinite(e).all() for e in embs)
+                or len(q_embs) != n_sub):
+            raise AssertionError("encoded documents are not finite [tokens, dim] arrays")
+        print(f"encode: {n_docs} docs of {ENC_WORDS} words, {total} tokens at batch {ENC_BATCH}: "
+              f"{encode_s:.2f} s, {n_docs / encode_s:.1f} docs/s, {total / encode_s:.0f} tokens/s; "
+              f"forward {fwd_ms:.3f} ms a batch of {ENC_BATCH} x {ids_b.shape[1]} (CUDA events), "
+              f"host share of the wall {100 * host_share:.1f}%; quantized forward {fwd_q_ms:.3f} ms "
+              f"a batch, {q_rate:.1f} docs/s over {n_sub} docs (bf16 "
+              f"{n_docs / encode_s:.1f})", flush=True)
+        del ids_b, attn_b
+
+        # The streamed build, uninterrupted; then interrupted and resumed.
+        bounds = np.concatenate([[0], np.cumsum(doclens)])
+        sample = torch.from_numpy(np.concatenate(embs)).to(device)
+        cfg = IndexConfig(nbits=4, seed=42)
+
+        class Interrupted(RuntimeError):
+            pass
+
+        def chunks(stop=None):
+            for i, s in enumerate(range(0, n_docs, chunk_docs)):
+                if i == stop:
+                    raise Interrupted(f"chunk {i}")
+                e = min(s + chunk_docs, n_docs)
+                yield DeviceChunk(tokens=sample[int(bounds[s]) : int(bounds[e])],
+                                  doclens=doclens[s:e])
+
+        def build(path, stop=None, resume=False, config=cfg):
+            return create_index_streamed(chunks(stop), path, config, sample_tokens=sample,
+                                         est_total_tokens=total, resume=resume, device=device)
+
+        full_path = os.path.join(WORK_DIR, "encoded")
+        res_path = os.path.join(WORK_DIR, "encoded_resumed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = build(full_path)
+        build_s = time.perf_counter() - t0
+        try:
+            build(res_path, stop=ENC_INTERRUPT_AT)
+            raise AssertionError("the interrupted build did not stop")
+        except Interrupted:
+            pass
+        written = sorted(n for n in os.listdir(res_path) if n.split(".")[0].isdigit()
+                         or n.startswith("doclens."))
+        before = {n: os.stat(os.path.join(res_path, n)).st_mtime_ns for n in written}
+        if len(written) != 4 * ENC_INTERRUPT_AT:
+            raise AssertionError(f"the interrupted build left {written}")
+        t0 = time.perf_counter()
+        build(res_path, resume=True)
+        resume_s = time.perf_counter() - t0
+        rewritten = [n for n in written
+                     if os.stat(os.path.join(res_path, n)).st_mtime_ns != before[n]]
+        names = sorted(n for n in os.listdir(full_path) if not n.startswith(".nextplaid"))
+        if names != sorted(n for n in os.listdir(res_path) if not n.startswith(".nextplaid")):
+            raise AssertionError("the resumed build wrote other files than the uninterrupted one")
+        differ = [n for n in names if not filecmp.cmp(os.path.join(full_path, n),
+                                                      os.path.join(res_path, n), shallow=False)]
+        if differ or rewritten:
+            raise AssertionError(f"resume: files differ {differ}, chunks rewritten {rewritten}")
+        try:
+            build(res_path, resume=True, config=IndexConfig(nbits=2, seed=42))
+            raise AssertionError("a resume with another nbits was not refused")
+        except StorageError:
+            pass
+        del sample
+        print(f"build: create_index_streamed {meta.num_documents} docs, {meta.num_embeddings} "
+              f"tokens, K {meta.num_partitions}, nbits 4, chunks of {chunk_docs} docs: "
+              f"{build_s:.2f} s; interrupted at chunk {ENC_INTERRUPT_AT} and resumed in "
+              f"{resume_s:.2f} s: {len(names)} files byte-equal to the uninterrupted build, "
+              f"{len(written)} chunk files skipped (mtime unchanged); nbits 2 resume refused",
+              flush=True)
+
+        # Load + pin, encoded queries through the bf16 kernel.
+        # The load merges the 6 chunks natively and stores the merge cache
+        # (as the default "auto" does at this size), stated explicitly.
+        t0 = time.perf_counter()
+        with merge_cache_flag("1"):
+            unpinned = DeviceIndex.load(full_path, device=device)
+        index = unpinned.with_token_grid(dtype="bf16")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        q_texts, sources = excerpt_queries(texts, n_queries, ENC_QUERY_WORDS)
+        t0 = time.perf_counter()
+        queries = enc.encode_queries(q_texts)
+        query_s = time.perf_counter() - t0
+        params = SearchParameters(top_k=10, stage1_precision="default")
+        search_batch(index, queries[:ENC_BATCH], params)  # warm-up
+        kernel = mk.maxsim_grid_scores
+        kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = search_batch(index, queries, params)
+        search_s = time.perf_counter() - t0
+        launches = kernel.launches
+        if launches == 0:
+            raise AssertionError("the encoder phase's search launched the bf16 kernel no time")
+        check_results(results, n_queries)
+        oracle = search_batch(unpinned, queries, SearchParameters(
+            top_k=10, mode="exact", stage1_precision="highest"))
+        recall = recall_at_10(results, oracle)
+        self_hit = float(np.mean([s in r.passage_ids for s, r in zip(sources, results)]))
+        print(f"search: load (native merge + merge cache store) + bf16 pin {load_s:.2f} s; "
+              f"{n_queries} queries of "
+              f"{ENC_QUERY_WORDS} words encoded in {1e3 * query_s:.1f} ms, searched in "
+              f"{1e3 * search_s:.1f} ms; recall@10 vs the f32 oracle {recall:.4f} (floor "
+              f"{MIN_RECALL}); source doc in the top 10 {self_hit:.4f} (random weights: "
+              f"printed, not held); bf16 kernel launches {launches}", flush=True)
+        if recall < MIN_RECALL:
+            raise AssertionError(f"encoded corpus recall@10 {recall} < {MIN_RECALL}")
+        # The kernel against its plain version on the encoded grid (the
+        # encoder's Td and doclens) and the padded encoded queries.
+        q_arr, _ = _pad_queries(queries, index.dim)
+        q_dev = torch.from_numpy(q_arr.reshape(-1, index.dim)).to(device, torch.bfloat16)
+        lens = torch.zeros(index.token_grid.shape[0], dtype=torch.int32, device=device)
+        lens[: index.num_docs_padded] = index.doclens
+        max_err = check_kernel(kernel, mk.maxsim_grid_scores_reference,
+                               (q_dev, index.token_grid, lens, q_arr.shape[1]),
+                               f"bf16 on the encoded grid {tuple(index.token_grid.shape)}, "
+                               f"{n_queries}q")
+        del index, unpinned, enc, embs, q_dev
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The BERT family's throughput.
+        bert = BackboneConfig(**bert_widths)
+        btok = WhitespaceTokenizer(bert.vocab_size)
+        benc = Colbert(config=colbert_config(btok, bert.projection_dim), backbone_config=bert,
+                       tokenizer=btok, params=init_random_params(bert, seed=0),
+                       batch_size=ENC_BATCH, device=device)
+        btexts = make_texts(bert_docs, ENC_WORDS, btok.n_words, seed=2)
+        benc.encode_documents(btexts[: 2 * ENC_BATCH])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bembs = benc.encode_documents(btexts)
+        bert_s = time.perf_counter() - t0
+        if any(not np.isfinite(e).all() for e in bembs):
+            raise AssertionError("BERT-family embeddings are not finite")
+        print(f"encoder [BERT, {bert.num_hidden_layers} layers, hidden {bert.hidden_size}]: "
+              f"{bert_docs} docs in {bert_s:.2f} s, {bert_docs / bert_s:.1f} docs/s; the phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        del benc
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"encoder_launches": launches, "encoder_max_abs_err": max_err}
+    finally:
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
+
+
 def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms, bound_ms, bound_by):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -1262,6 +1700,11 @@ def main() -> int:
         if serialized:
             raise AssertionError(f"{lib_path.name}: ptxas serialized wgmma: {serialized[0]}")
     print(f"build: {len(libs)} kernel sources in {build_s:.2f} s", flush=True)
+    from nextplaid_tpu_torch.storage import native
+
+    if not native.available():
+        raise AssertionError(f"the native host library did not build from {native.SOURCE}")
+    print(f"build: native host library {native.library_path().name}", flush=True)
 
     # Phase 3: each kernel vs its plain version on the card.
     for label, args in (("bf16 edge cases", edge_case_inputs(device)),
@@ -1279,23 +1722,29 @@ def main() -> int:
 
     # Phase 4: the variant sweep (path B of the third slice).
     variants = variants_phase(device, mv, mk)
-    # Phases 5-6: SciFact scale, bf16 and int8 pins; then this slice's path,
+    # Phases 5-6: SciFact scale, bf16 and int8 pins; then the sixth slice's path,
     # mutations of that index.
     (bf16, _), mutation = scifact_phases(device, mk)
-    # Phases 7-8: grid-only int8 serving at scale, then the third slice's main
-    # path: staged search over the same corpus's full index.
+    # Phase 7: this slice's path, text to a searchable index: the encoder,
+    # a resumed streamed build, load, and search through the bf16 kernel.
+    encoder = encoder_phase(device, mk)
+    # Phases 8-9: grid-only int8 serving at scale (with the native merge and
+    # the merge cache on its host load), then the third slice's main path:
+    # staged search over the same corpus's full index.
     int8, staged = grid_only_phase(device, mk)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # Phase 9: the kernels line, then the device line. The bf16 kernel's
-    # launches are the SciFact path's, the staged path's and the mutation
-    # phase's; its ms, bound and plain ms are the SciFact pass's, the staged_*
-    # keys the stage-4 shape's. The int8 kernel's are the grid-only path's
-    # and the mutation phase's.
+    # Phase 10: the kernels line, then the device line. The bf16 kernel's
+    # launches are the SciFact path's, the staged path's, the mutation
+    # phase's and the encoder phase's; its ms, bound and plain ms are the
+    # SciFact pass's, the staged_* keys the stage-4 shape's. The int8
+    # kernel's are the grid-only path's and the mutation phase's.
     bf16_entry = kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:])
-    bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged, **mutation["bf16"])
-    bf16_entry["launches"] += staged["staged_launches"] + mutation["bf16"]["mutation_launches"]
+    bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged, **mutation["bf16"],
+                      **encoder)
+    bf16_entry["launches"] += (staged["staged_launches"] + mutation["bf16"]["mutation_launches"]
+                               + encoder["encoder_launches"])
     int8_entry = kernel_entry("maxsim_grid_scores_int8i", "nextplaid_tpu_torch/csrc/maxsim_int8.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:150", *int8)
     int8_entry.update(grid_only_launches=int8_entry["launches"], **mutation["int8"])

@@ -1,0 +1,639 @@
+"""ColBERT encoder as `torch.nn`: transformer backbone + projection + L2 norm.
+
+PyTorch counterpart of `nextplaid_tpu.encoder.model` (next-plaid-onnx's
+exported graph: backbone -> Dense(dim, no bias) -> normalize). Two backbones:
+  - BERT (post-LayerNorm, learned positions): answerai-colbert-small,
+    colbert-v2 style checkpoints;
+  - ModernBERT (pre-LayerNorm, RoPE, GeGLU, alternating local/global
+    attention): GTE-ModernColBERT-v1.
+
+The JAX package computes all of it in plain XLA, so here it is plain PyTorch
+ops: `torch.matmul` for the dense layers and attention, `torch._int_mm` for
+the int8 products of the quantized mode. The dtype chain is the JAX
+package's, step by step:
+  - a backbone dense layer casts its input and weights to the compute dtype
+    and returns that dtype (`nn.Dense(dtype=...)`); weights are held in the
+    compute dtype, which rounds them as that cast does;
+  - embeddings and LayerNorms run and return float32, so residual sums are
+    float32 + compute dtype;
+  - attention scores are the compute-dtype product divided by sqrt(head
+    dim) in float32 (the JAX package divides by a numpy float64, which
+    promotes), the -1e9 mask bias and the softmax are float32, and the
+    probabilities times the values are a float32 product;
+  - the projection runs in float32, then L2 normalize with a 1e-12 clamp.
+
+Parameter names are the JAX package's Flax tree flattened with dots
+(`backbone.layer_0.attention.query.kernel`), kernels laid out [in, out], so
+`params_from_jax` carries a Flax tree across unchanged and `load_params`
+maps HF checkpoints by the same names. Weights are a plain `state_dict`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from nextplaid_tpu_torch.utils.device import DeviceLike, resolve_device
+from nextplaid_tpu_torch.utils.errors import EncodingError
+
+
+@dataclass
+class BackboneConfig:
+    """Union of the fields we need from HF `config.json` for both families."""
+
+    model_type: str = "bert"  # "bert" | "modernbert"
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    hidden_act: str = "gelu"
+    # ModernBERT specifics
+    norm_eps: float = 1e-5
+    global_attn_every_n_layers: int = 3
+    local_attention: int = 128
+    global_rope_theta: float = 160_000.0
+    local_rope_theta: float = 10_000.0
+    # ColBERT head
+    projection_dim: int = 128
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "BackboneConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    @classmethod
+    def from_model_dir(cls, model_dir) -> "BackboneConfig":
+        p = Path(model_dir) / "config.json"
+        if not p.exists():
+            raise EncodingError(f"config.json not found in {model_dir}")
+        with open(p) as f:
+            return cls.from_dict(json.load(f))
+
+
+def _act(name: str):
+    """HF's activation names: "gelu" is the exact erf GELU (HF's ACT2FN),
+    "gelu_new" / "gelu_pytorch_tanh" the tanh approximation."""
+    tanh_gelu = lambda x: F.gelu(x, approximate="tanh")  # noqa: E731
+    return {
+        "gelu": F.gelu,
+        "gelu_new": tanh_gelu,
+        "gelu_pytorch_tanh": tanh_gelu,
+        "relu": F.relu,
+        "silu": F.silu,
+    }.get(name, F.gelu)
+
+
+# ---------------------------------------------------------------------------
+# Layers (names and layouts of their Flax counterparts)
+# ---------------------------------------------------------------------------
+
+
+class Dense(nn.Module):
+    """`flax.linen.Dense`: kernel [in, out] and bias held in `dtype`; the
+    input is cast to it and the result returned in it."""
+
+    def __init__(self, in_f, out_f, dtype, use_bias=True, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_f, out_f, dtype=dtype, device=device))
+        self.bias = (
+            nn.Parameter(torch.empty(out_f, dtype=dtype, device=device))
+            if use_bias
+            else None
+        )
+
+    def forward(self, x):
+        y = torch.matmul(x.to(self.kernel.dtype), self.kernel)
+        return y if self.bias is None else y + self.bias
+
+
+def _int8_matmul(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
+    """[m, k] int8 x [k, n] int8 -> [m, n] int32 through `torch._int_mm`.
+    On the card its operands must have more than 16 rows and k, n multiples
+    of 8: rows are padded to a multiple of 32 (zero rows, sliced off), k and
+    n with zeros (which add nothing to a dot)."""
+    if not xq.is_cuda:
+        return torch._int_mm(xq, kq)
+    m, k = xq.shape
+    n = kq.shape[1]
+    m_pad, k_pad, n_pad = -(-m // 32) * 32, -(-k // 8) * 8, -(-n // 8) * 8
+    if (m_pad, k_pad) != (m, k):
+        xq = F.pad(xq, (0, k_pad - k, 0, m_pad - m))
+    if (k_pad, n_pad) != (k, n):
+        kq = F.pad(kq, (0, n_pad - n, 0, k_pad - k))
+    return torch._int_mm(xq, kq)[:m, :n]
+
+
+class QuantDense(nn.Module):
+    """Dense with int8 weights + per-output-column scales and dynamic
+    per-row int8 activation quantization (int8 x int8 -> int32), the JAX
+    package's `QuantDense` (next-plaid-onnx's INT8 sessions: onnxruntime
+    `quantize_dynamic`)."""
+
+    def __init__(self, in_f, out_f, compute_dtype, use_bias=True, device=None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        # Column-major [in, out]: the layout cuBLASLt's int8 product takes.
+        self.register_buffer(
+            "kernel_q", torch.zeros(out_f, in_f, dtype=torch.int8, device=device).t()
+        )
+        self.register_buffer(
+            "kernel_scale", torch.ones(out_f, dtype=torch.float32, device=device)
+        )
+        self.bias = (
+            nn.Parameter(torch.zeros(out_f, dtype=torch.float32, device=device))
+            if use_bias
+            else None
+        )
+
+    def forward(self, x):
+        xf = x.float()
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        ascale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        xq = torch.clamp(torch.round(xf / ascale), -127, 127).to(torch.int8)
+        lead = xq.shape[:-1]
+        y = _int8_matmul(xq.reshape(-1, xq.shape[-1]), self.kernel_q)
+        out = y.reshape(*lead, -1).float() * ascale * self.kernel_scale
+        if self.bias is not None:
+            out = out + self.bias
+        return out.to(self.compute_dtype)
+
+
+def _dense(quantized, in_f, out_f, dtype, use_bias=True, device=None):
+    if quantized:
+        return QuantDense(in_f, out_f, dtype, use_bias=use_bias, device=device)
+    return Dense(in_f, out_f, dtype, use_bias=use_bias, device=device)
+
+
+class Embed(nn.Module):
+    """`flax.linen.Embed`: a float32 table named `embedding`."""
+
+    def __init__(self, num, features, device=None):
+        super().__init__()
+        self.embedding = nn.Parameter(
+            torch.empty(num, features, dtype=torch.float32, device=device)
+        )
+
+    def forward(self, ids):
+        return F.embedding(ids, self.embedding)
+
+
+class LayerNorm(nn.Module):
+    """`flax.linen.LayerNorm(dtype=float32)`: `scale` and optional `bias`,
+    run and returned in float32."""
+
+    def __init__(self, features, eps, use_bias=True, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = (
+            nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
+        )
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.scale.shape, self.scale, self.bias, self.eps)
+
+
+def _mask_bias(allow: torch.Tensor) -> torch.Tensor:
+    """Additive float32 attention bias: 0 where allowed, -1e9 elsewhere."""
+    return torch.where(allow, 0.0, -1e9).to(torch.float32)
+
+
+def _attend(q, k, v, bias):
+    """Plain attention over [B, L, H, D] q/k/v with a float32 additive bias
+    broadcast to [B, H, L, L]; returns [B, L, H*D] float32."""
+    B, L, H, D = q.shape
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    scores = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(D)
+    probs = torch.softmax(scores + bias, dim=-1)
+    ctx = torch.matmul(probs, v.float())
+    return ctx.transpose(1, 2).reshape(B, L, H * D)
+
+
+# ---------------------------------------------------------------------------
+# BERT backbone
+# ---------------------------------------------------------------------------
+
+
+class BertSelfAttention(nn.Module):
+    def __init__(self, cfg: BackboneConfig, dtype, quantized, device=None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        for name in ("query", "key", "value", "output"):
+            self.add_module(name, _dense(quantized, h, h, dtype, device=device))
+
+    def forward(self, hidden, bias):
+        cfg = self.cfg
+        B, L, _ = hidden.shape
+        split = lambda x: x.reshape(  # noqa: E731
+            B, L, cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads
+        )
+        ctx = _attend(
+            split(self.query(hidden)), split(self.key(hidden)),
+            split(self.value(hidden)), bias,
+        )
+        return self.output(ctx)
+
+
+class BertLayer(nn.Module):
+    def __init__(self, cfg: BackboneConfig, dtype, quantized, device=None):
+        super().__init__()
+        self.act = _act(cfg.hidden_act)
+        h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.attention = BertSelfAttention(cfg, dtype, quantized, device)
+        self.attention_norm = LayerNorm(h, eps, device=device)
+        self.intermediate = _dense(quantized, h, cfg.intermediate_size, dtype, device=device)
+        self.output = _dense(quantized, cfg.intermediate_size, h, dtype, device=device)
+        self.output_norm = LayerNorm(h, eps, device=device)
+
+    def forward(self, hidden, bias):
+        hidden = self.attention_norm(hidden + self.attention(hidden, bias))
+        mlp = self.output(self.act(self.intermediate(hidden)))
+        return self.output_norm(hidden + mlp)
+
+
+class BertBackbone(nn.Module):
+    def __init__(self, cfg: BackboneConfig, dtype, quantized, device=None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.word_embeddings = Embed(cfg.vocab_size, h, device)
+        self.position_embeddings = Embed(cfg.max_position_embeddings, h, device)
+        self.token_type_embeddings = Embed(cfg.type_vocab_size, h, device)
+        self.embeddings_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
+        for i in range(cfg.num_hidden_layers):
+            self.add_module(f"layer_{i}", BertLayer(cfg, dtype, quantized, device))
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None):
+        L = input_ids.shape[1]
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        pos = torch.arange(L, device=input_ids.device)[None, :]
+        emb = self.word_embeddings(input_ids) + self.position_embeddings(pos)
+        emb = emb + self.token_type_embeddings(token_type_ids)
+        hidden = self.embeddings_norm(emb)
+        bias = _mask_bias(attention_mask.bool()[:, None, None, :])
+        for i in range(self.cfg.num_hidden_layers):
+            hidden = getattr(self, f"layer_{i}")(hidden, bias)
+        return hidden
+
+
+# ---------------------------------------------------------------------------
+# ModernBERT backbone (RoPE, GeGLU, pre-norm, local/global alternation)
+# ---------------------------------------------------------------------------
+
+
+def _rope(q, k, theta: float):
+    """Rotary position embedding over the last dim of [B, L, H, D] q/k,
+    rotate-half convention, computed in float32 and returned in q's dtype."""
+    d = q.shape[-1]
+    L = q.shape[1]
+    inv_freq = torch.from_numpy(
+        (1.0 / (theta ** (np.arange(0, d, 2) / d))).astype(np.float32)
+    ).to(q.device)
+    pos = torch.arange(L, dtype=torch.float32, device=q.device)[:, None] * inv_freq[None, :]
+    cos = torch.cos(pos)[None, :, None, :]
+    sin = torch.sin(pos)[None, :, None, :]
+
+    def rot(x):
+        x1, x2 = x[..., : d // 2], x[..., d // 2 :]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+    return rot(q), rot(k)
+
+
+class ModernBertAttention(nn.Module):
+    def __init__(self, cfg: BackboneConfig, layer_idx, dtype, quantized, device=None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.is_global = layer_idx % cfg.global_attn_every_n_layers == 0
+        self.theta = cfg.global_rope_theta if self.is_global else cfg.local_rope_theta
+        self.Wqkv = _dense(quantized, h, 3 * h, dtype, use_bias=False, device=device)
+        self.Wo = _dense(quantized, h, h, dtype, use_bias=False, device=device)
+
+    def forward(self, hidden, bias):
+        cfg = self.cfg
+        H = cfg.num_attention_heads
+        B, L, _ = hidden.shape
+        qkv = self.Wqkv(hidden).reshape(B, L, 3 * H, cfg.hidden_size // H)
+        q, k, v = qkv.split(H, dim=2)
+        q, k = _rope(q, k, self.theta)
+        return self.Wo(_attend(q, k, v, bias))
+
+
+class ModernBertLayer(nn.Module):
+    def __init__(self, cfg: BackboneConfig, layer_idx, dtype, quantized, device=None):
+        super().__init__()
+        h, eps = cfg.hidden_size, cfg.norm_eps
+        self.act = _act(cfg.hidden_act)
+        # HF ModernBERT's layer 0 has an Identity attn_norm: the embedding
+        # norm directly precedes it.
+        self.attn_norm = (
+            LayerNorm(h, eps, use_bias=False, device=device) if layer_idx else None
+        )
+        self.attn = ModernBertAttention(cfg, layer_idx, dtype, quantized, device)
+        self.mlp_norm = LayerNorm(h, eps, use_bias=False, device=device)
+        self.Wi = _dense(
+            quantized, h, 2 * cfg.intermediate_size, dtype, use_bias=False, device=device
+        )
+        self.Wo = _dense(
+            quantized, cfg.intermediate_size, h, dtype, use_bias=False, device=device
+        )
+
+    def forward(self, hidden, bias):
+        normed = hidden if self.attn_norm is None else self.attn_norm(hidden)
+        hidden = hidden + self.attn(normed, bias)
+        a, b = self.Wi(self.mlp_norm(hidden)).chunk(2, dim=-1)  # GeGLU
+        return hidden + self.Wo(self.act(a) * b)
+
+
+class ModernBertBackbone(nn.Module):
+    def __init__(self, cfg: BackboneConfig, dtype, quantized, device=None):
+        super().__init__()
+        self.cfg = cfg
+        h, eps = cfg.hidden_size, cfg.norm_eps
+        self.word_embeddings = Embed(cfg.vocab_size, h, device)
+        self.emb_norm = LayerNorm(h, eps, use_bias=False, device=device)
+        for i in range(cfg.num_hidden_layers):
+            self.add_module(
+                f"layer_{i}", ModernBertLayer(cfg, i, dtype, quantized, device)
+            )
+        self.final_norm = LayerNorm(h, eps, use_bias=False, device=device)
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None):
+        cfg = self.cfg
+        L = input_ids.shape[1]
+        hidden = self.emb_norm(self.word_embeddings(input_ids))
+        allow = attention_mask.bool()[:, None, None, :]
+        idx = torch.arange(L, device=input_ids.device)
+        # Sliding-window attention on local layers: |i - j| <= window/2.
+        window = (idx[:, None] - idx[None, :]).abs() <= cfg.local_attention // 2
+        global_bias = _mask_bias(allow)
+        local_bias = _mask_bias(allow & window[None, None, :, :])
+        for i in range(cfg.num_hidden_layers):
+            layer = getattr(self, f"layer_{i}")
+            hidden = layer(hidden, global_bias if layer.attn.is_global else local_bias)
+        return self.final_norm(hidden)
+
+
+# ---------------------------------------------------------------------------
+# ColBERT head
+# ---------------------------------------------------------------------------
+
+
+class ColbertModel(nn.Module):
+    """Backbone -> Dense(projection_dim, no bias, float32) -> L2 normalize.
+
+    `compute_dtype` is the backbone's dense and attention-product dtype
+    (bfloat16 by default, float32 for tight parity). quantized=True swaps
+    every backbone dense layer for QuantDense (int8 weights, dynamic int8
+    activations); the projection stays full precision. Parameters are
+    created uninitialised on `device` ("cuda" when None): load a state_dict
+    into them."""
+
+    def __init__(
+        self,
+        config: BackboneConfig,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        quantized: bool = False,
+        device: DeviceLike = None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        backbone = (
+            ModernBertBackbone if config.model_type == "modernbert" else BertBackbone
+        )
+        self.backbone = backbone(config, compute_dtype, quantized, device)
+        self.projection = Dense(
+            config.hidden_size, config.projection_dim, torch.float32,
+            use_bias=False, device=device,
+        )
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None):
+        hidden = self.backbone(input_ids, attention_mask, token_type_ids)
+        proj = self.projection(hidden.float())
+        return proj / torch.clamp(proj.norm(dim=-1, keepdim=True), min=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# Weights: random init, the JAX package's trees, quantization, HF checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree, prefix="") -> Dict[str, Any]:
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            out.update(_flatten(value, name + "."))
+        else:
+            out[name] = value
+    return out
+
+
+def params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """The JAX package's Flax param tree (`{"params": {...}}` with numpy or
+    jax leaves, float and `kernel_q`/`kernel_scale`) as this module's
+    state_dict: the same names joined by dots, the same layouts."""
+    tree = tree.get("params", tree)
+    return {
+        name: torch.from_numpy(np.array(leaf))
+        for name, leaf in _flatten(tree).items()
+    }
+
+
+def init_random_params(cfg: BackboneConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Random float32 weights from `seed` (tests and runs without a
+    checkpoint), drawn on the host by an explicit `torch.Generator` with
+    the Flax initializers' distributions: dense kernels LeCun normal
+    (truncated at two deviations, variance 1/fan_in), embeddings normal
+    with variance 1/features, norms' scales ones, biases zeros."""
+    gen = torch.Generator().manual_seed(seed)
+    model = ColbertModel(cfg, torch.float32, device="meta")
+    out = {}
+    for name, p in model.state_dict().items():
+        leaf = name.rsplit(".", 1)[1]
+        t = torch.empty(p.shape, dtype=torch.float32)
+        if leaf == "kernel":
+            # Flax's truncated_normal rescales so the truncated variance is 1.
+            std = math.sqrt(1.0 / p.shape[0]) / 0.87962566103423978
+            nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen)
+        elif leaf == "embedding":
+            nn.init.normal_(t, std=math.sqrt(1.0 / p.shape[1]), generator=gen)
+        elif leaf == "scale":
+            t.fill_(1.0)
+        else:
+            t.zero_()
+        out[name] = t
+    return out
+
+
+def quantize_dense_params(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Post-training conversion of a float state_dict: every 2-D dense
+    kernel but the projection's becomes int8 weights + per-output-column
+    float32 scales for QuantDense (the JAX package's arithmetic, in numpy),
+    with its bias in float32. The projection stays full precision: it is
+    tiny and sets output quality."""
+    out = {}
+    for name, value in params.items():
+        parts = name.split(".")
+        prefix = ".".join(parts[:-1])
+        skip = parts[0] == "projection"
+        if parts[-1] == "kernel" and value.ndim == 2 and not skip:
+            w = value.detach().cpu().float().numpy()
+            s = np.abs(w).max(axis=0) / 127.0
+            s = np.where(s > 0, s, 1.0).astype(np.float32)
+            q = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+            out[f"{prefix}.kernel_q"] = torch.from_numpy(q)
+            out[f"{prefix}.kernel_scale"] = torch.from_numpy(s)
+        elif parts[-1] == "bias" and f"{prefix}.kernel" in params and not skip:
+            out[name] = value.detach().float()
+        else:
+            out[name] = value
+    return out
+
+
+def _read_state_dict(model_dir: Path) -> Dict[str, np.ndarray]:
+    st = model_dir / "model.safetensors"
+    if st.exists():
+        from safetensors.numpy import load_file
+
+        return load_file(str(st))
+    pt = model_dir / "pytorch_model.bin"
+    if pt.exists():
+        sd = torch.load(str(pt), map_location="cpu", weights_only=True)
+        return {k: v.float().numpy() for k, v in sd.items()}
+    raise EncodingError(f"No model.safetensors or pytorch_model.bin in {model_dir}")
+
+
+def _read_dense_head(model_dir: Path) -> Optional[np.ndarray]:
+    """PyLate/sentence-transformers store the ColBERT projection in a
+    `1_Dense/` module directory."""
+    for rel in ("1_Dense/model.safetensors", "1_Dense/pytorch_model.bin"):
+        p = model_dir / rel
+        if not p.exists():
+            continue
+        if p.suffix == ".safetensors":
+            from safetensors.numpy import load_file
+
+            sd = load_file(str(p))
+        else:
+            sd = {
+                k: v.float().numpy()
+                for k, v in torch.load(str(p), map_location="cpu", weights_only=True).items()
+            }
+        for key in ("linear.weight", "dense.weight", "weight"):
+            if key in sd:
+                return np.asarray(sd[key])
+    return None
+
+
+def _strip_prefix(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    for prefix in ("bert.", "model.", "encoder_model."):
+        if any(k.startswith(prefix) for k in sd):
+            return {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()}
+    return sd
+
+
+def _kernel(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.T)
+
+
+def _map_bert(sd: Dict[str, np.ndarray], cfg: BackboneConfig) -> Dict:
+    """HF bert-* names -> the BertBackbone tree (nested, as the JAX
+    package's)."""
+    p: Dict[str, Any] = {
+        "word_embeddings": {"embedding": sd["embeddings.word_embeddings.weight"]},
+        "position_embeddings": {"embedding": sd["embeddings.position_embeddings.weight"]},
+        "token_type_embeddings": {"embedding": sd["embeddings.token_type_embeddings.weight"]},
+        "embeddings_norm": {
+            "scale": sd["embeddings.LayerNorm.weight"],
+            "bias": sd["embeddings.LayerNorm.bias"],
+        },
+    }
+
+    def dense(name):
+        return {"kernel": _kernel(sd[name + ".weight"]), "bias": sd[name + ".bias"]}
+
+    def norm(name):
+        return {"scale": sd[name + ".weight"], "bias": sd[name + ".bias"]}
+
+    for i in range(cfg.num_hidden_layers):
+        b = f"encoder.layer.{i}."
+        p[f"layer_{i}"] = {
+            "attention": {
+                "query": dense(b + "attention.self.query"),
+                "key": dense(b + "attention.self.key"),
+                "value": dense(b + "attention.self.value"),
+                "output": dense(b + "attention.output.dense"),
+            },
+            "attention_norm": norm(b + "attention.output.LayerNorm"),
+            "intermediate": dense(b + "intermediate.dense"),
+            "output": dense(b + "output.dense"),
+            "output_norm": norm(b + "output.LayerNorm"),
+        }
+    return p
+
+
+def _map_modernbert(sd: Dict[str, np.ndarray], cfg: BackboneConfig) -> Dict:
+    p: Dict[str, Any] = {
+        "word_embeddings": {"embedding": sd["embeddings.tok_embeddings.weight"]},
+        "emb_norm": {"scale": sd["embeddings.norm.weight"]},
+        "final_norm": {"scale": sd["final_norm.weight"]},
+    }
+    for i in range(cfg.num_hidden_layers):
+        b = f"layers.{i}."
+        layer: Dict[str, Any] = {
+            "attn": {
+                "Wqkv": {"kernel": _kernel(sd[b + "attn.Wqkv.weight"])},
+                "Wo": {"kernel": _kernel(sd[b + "attn.Wo.weight"])},
+            },
+            "mlp_norm": {"scale": sd[b + "mlp_norm.weight"]},
+            "Wi": {"kernel": _kernel(sd[b + "mlp.Wi.weight"])},
+            "Wo": {"kernel": _kernel(sd[b + "mlp.Wo.weight"])},
+        }
+        if i != 0:
+            layer["attn_norm"] = {"scale": sd[b + "attn_norm.weight"]}
+        p[f"layer_{i}"] = layer
+    return p
+
+
+def load_params(model_dir, cfg: BackboneConfig) -> Dict[str, torch.Tensor]:
+    """Load an HF checkpoint (and its `1_Dense/` projection) as a
+    ColbertModel state_dict."""
+    model_dir = Path(model_dir)
+    sd = _strip_prefix(_read_state_dict(model_dir))
+    if cfg.model_type == "modernbert":
+        backbone = _map_modernbert(sd, cfg)
+    else:
+        backbone = _map_bert(sd, cfg)
+    head = _read_dense_head(model_dir)
+    if head is None:
+        # Some exports keep the projection in the main state dict.
+        for key in ("linear.weight", "projection.weight", "dense.weight"):
+            if key in sd:
+                head = sd[key]
+                break
+    if head is None:
+        raise EncodingError(
+            f"ColBERT projection weights not found in {model_dir} "
+            "(expected 1_Dense/ module or linear.weight)"
+        )
+    return params_from_jax(
+        {"backbone": backbone, "projection": {"kernel": _kernel(np.asarray(head))}}
+    )

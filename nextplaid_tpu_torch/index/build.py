@@ -5,12 +5,13 @@ src/index.rs:182-971): centroid training (ops.kmeans), code assignment and
 residual quantization (ops.codec) run on the device; the host orchestrates
 chunking and writes the reference-compatible NPY + JSON directory.
 
-Only the flat centroid structure is ported. The streamed build has no
-`resume`, and the IVF is always built on the host (`build_ivf`).
+Only the flat centroid structure is ported, and the IVF is always built on
+the host (`build_ivf`).
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Iterable, List, Optional, Sequence, Tuple
 
@@ -25,9 +26,14 @@ from nextplaid_tpu_torch.storage.npy import (
     atomic_write_json,
     atomic_write_npy,
     file_lock,
+    load_json,
+    load_npy,
 )
 from nextplaid_tpu_torch.utils.device import DeviceLike, resolve_device
+from nextplaid_tpu_torch.utils.errors import StorageError
 from nextplaid_tpu_torch.utils.progress import report as _progress
+
+logger = logging.getLogger(__name__)
 
 # Tokens per residual-quantization tile: bounds the f32 residual and the
 # int32 bucket temporaries of `_residual_quantize_tiled`.
@@ -463,12 +469,99 @@ def _train_streamed_artifacts(
     return _finish_codec_artifacts(artifacts, sample_tokens[:heldout_n], config)
 
 
+def _streamed_fingerprint_dict(config: IndexConfig, est_total_tokens: int) -> dict:
+    """The config facets a resumed streamed build must match. nbits changes
+    residual packing width, seed/structure/iters change the trained
+    centroids, est_total_tokens drives the K heuristic: reusing artifacts
+    trained under any different value silently corrupts the index."""
+    return {
+        "nbits": int(config.nbits),
+        "seed": int(config.seed if config.seed is not None else 42),
+        "centroid_structure": str(config.centroid_structure),
+        "kmeans_niters": int(config.kmeans_niters),
+        "est_total_tokens": int(est_total_tokens),
+    }
+
+
+def _load_streamed_artifacts(
+    layout: IndexLayout, config: IndexConfig, est_total_tokens: int
+) -> Optional[CodecArtifacts]:
+    """Reload trained codec artifacts left by an interrupted streamed build.
+
+    Returns None unless every artifact file exists (training never completed
+    or this is a fresh directory), or when no fingerprint file says what
+    they were trained under (retraining is the safe path). Raises
+    StorageError when artifacts were trained under a different config
+    fingerprint, and NotImplementedError over RQ sidecars (the RQ centroid
+    structure is not ported)."""
+    needed = (
+        layout.centroids,
+        layout.bucket_cutoffs,
+        layout.bucket_weights,
+        layout.avg_residual,
+        layout.cluster_threshold,
+    )
+    if not all(p.exists() for p in needed):
+        return None
+    if not layout.streamed_fingerprint.exists():
+        logger.warning(
+            "streamed resume: artifacts present but no fingerprint file; "
+            "retraining codec instead of reusing them"
+        )
+        return None
+    stored = load_json(layout.streamed_fingerprint)
+    expected = _streamed_fingerprint_dict(config, est_total_tokens)
+    if stored != expected:
+        raise StorageError(
+            "streamed resume refused: on-disk codec artifacts were trained "
+            f"under {stored}, current build wants {expected}. Clear the "
+            "index directory (or pass the original config) to proceed."
+        )
+    if layout.rq_coarse.exists() and layout.rq_fine.exists():
+        raise NotImplementedError(
+            "resuming a streamed build with RQ sidecars (rq_coarse/rq_fine): "
+            "the RQ centroid structure is not ported yet (ROADMAP.md)"
+        )
+
+    def f32(path):
+        return np.asarray(load_npy(path, mmap=False), np.float32)
+
+    return CodecArtifacts(
+        centroids=f32(layout.centroids),
+        bucket_cutoffs=f32(layout.bucket_cutoffs),
+        bucket_weights=f32(layout.bucket_weights),
+        avg_residual=f32(layout.avg_residual),
+        cluster_threshold=float(f32(layout.cluster_threshold)[0]),
+        nbits=config.nbits,
+    )
+
+
+def _streamed_chunk_complete(layout: IndexLayout, i: int, offset: int) -> bool:
+    """True when chunk i's four files were fully written by a previous run
+    at the same embedding offset (all writes are atomic tmp+rename, so
+    existence implies completeness)."""
+    meta_p = layout.chunk_metadata(i)
+    if not (
+        meta_p.exists()
+        and layout.chunk_codes(i).exists()
+        and layout.chunk_residuals(i).exists()
+        and layout.chunk_doclens(i).exists()
+    ):
+        return False
+    try:
+        meta = load_json(meta_p)
+    except (OSError, ValueError):
+        return False
+    return int(meta.get("embedding_offset", -1)) == offset
+
+
 def create_index_streamed(
     chunks: Iterable[DeviceChunk],
     index_path: str,
     config: Optional[IndexConfig] = None,
     sample_tokens: Optional[torch.Tensor] = None,
     est_total_tokens: Optional[int] = None,
+    resume: bool = False,
     device: DeviceLike = None,
 ) -> Metadata:
     """Index a corpus streamed as DeviceChunks; only the packed residuals and
@@ -479,6 +572,12 @@ def create_index_streamed(
       sample_tokens: [n, d] tokens for centroid + codec training (required).
       est_total_tokens: drives the K heuristic (next-plaid
         src/kmeans.rs:304-309). Required.
+      resume: reuse the codec artifacts and completed chunk files an
+        interrupted previous build left in index_path. The caller must
+        replay the SAME chunk stream; chunks already written are verified
+        by offset and doclens and skipped, not rewritten. A directory
+        trained under another config (`streamed_fingerprint.json`) is
+        refused with StorageError.
       device: where training and encoding run ("cuda" when None); chunks
         and the sample are moved there.
     """
@@ -490,11 +589,29 @@ def create_index_streamed(
 
     with file_lock(IndexLayout(index_path).lock):
         layout = IndexLayout(index_path)
-        artifacts = _train_streamed_artifacts(
-            sample_tokens.to(device, torch.float32), est_total_tokens, config
+        artifacts = (
+            _load_streamed_artifacts(layout, config, est_total_tokens)
+            if resume
+            else None
         )
-        layout.root.mkdir(parents=True, exist_ok=True)
-        _write_codec(layout, artifacts)
+        resuming = artifacts is not None
+        if resuming:
+            logger.info(
+                "streamed build: resuming with on-disk codec artifacts (K=%d)",
+                artifacts.centroids.shape[0],
+            )
+        else:
+            artifacts = _train_streamed_artifacts(
+                sample_tokens.to(device, torch.float32), est_total_tokens, config
+            )
+            # Persist the trained codec and its fingerprint BEFORE the encode
+            # loop, so an aborted build can resume without retraining.
+            layout.root.mkdir(parents=True, exist_ok=True)
+            _write_codec(layout, artifacts)
+            atomic_write_json(
+                layout.streamed_fingerprint,
+                _streamed_fingerprint_dict(config, est_total_tokens),
+            )
         cents_dev = torch.as_tensor(artifacts.centroids, device=device)
         cutoffs_dev = torch.as_tensor(artifacts.bucket_cutoffs, device=device)
 
@@ -504,6 +621,28 @@ def create_index_streamed(
         num_chunks = 0
         for i, chunk in enumerate(chunks):
             _progress("encode", processed=offset)
+            doclens = np.asarray(chunk.doclens, np.int64)
+            num_chunks = i + 1
+            if resuming and _streamed_chunk_complete(layout, i, offset):
+                stored = np.asarray(load_json(layout.chunk_doclens(i)), np.int64)
+                if not np.array_equal(stored, doclens):
+                    raise StorageError(
+                        f"streamed resume refused at chunk {i}: stored "
+                        f"doclens ({stored.shape[0]} docs, {int(stored.sum())} "
+                        f"tokens) differ from the replayed stream "
+                        f"({doclens.shape[0]} docs, {int(doclens.sum())} "
+                        "tokens): the index dir holds a different corpus. "
+                        "Clear it to rebuild."
+                    )
+                codes = np.asarray(load_npy(layout.chunk_codes(i), mmap=False))
+                all_codes.append(codes.astype(np.int64))
+                all_doclens.append(stored)
+                offset += int(codes.shape[0])
+                continue
+            # First gap: later chunk files (if any) are re-encoded and
+            # atomically overwritten, so the offsets can never diverge from
+            # the stream.
+            resuming = False
             tokens = chunk.tokens.to(device, torch.float32)
             codes_dev = assign_with_artifacts(tokens, artifacts)
             packed = _residual_quantize_tiled(
@@ -512,13 +651,12 @@ def create_index_streamed(
             encoded = EncodedChunk(
                 codes=codes_dev.cpu().numpy().astype(np.int64),
                 residuals=packed,
-                doclens=[int(x) for x in np.asarray(chunk.doclens)],
+                doclens=[int(x) for x in doclens],
             )
             _write_chunk(layout, i, encoded, offset)
             offset += len(encoded.codes)
             all_codes.append(encoded.codes)
-            all_doclens.append(np.asarray(chunk.doclens, np.int64))
-            num_chunks = i + 1
+            all_doclens.append(doclens)
         if num_chunks == 0:
             raise ValueError("No chunks provided")
 

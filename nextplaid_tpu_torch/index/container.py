@@ -40,6 +40,7 @@ import torch
 
 from nextplaid_tpu_torch.index.config import Metadata
 from nextplaid_tpu_torch.ops import codec as codec_ops
+from nextplaid_tpu_torch.storage import merge_cache, native
 from nextplaid_tpu_torch.storage.npy import IndexLayout, load_json, load_npy
 from nextplaid_tpu_torch.utils.device import DeviceLike, resolve_device
 from nextplaid_tpu_torch.utils.errors import StorageError, UpdateError
@@ -779,30 +780,58 @@ class DeviceIndex:
 
 
 def load_host_arrays(index_path: str) -> dict:
-    """Host side of an index load: metadata and the chunk arrays,
-    concatenated with numpy. (The JAX package's merge cache and native
-    loader are not ported.)"""
+    """Host side of an index load: metadata and the merged chunk arrays, no
+    device staging. As the JAX package's (next-plaid `MmapIndex::load`,
+    src/index.rs:1026, with the manifest fast path, src/mmap.rs:1081-1300):
+    the merge cache when no chunk changed since it was written, else the
+    native mmap+memcpy merge, else numpy's concatenation; a fresh merge is
+    stored to the cache when the cache is on (`merge_cache.enabled`)."""
     layout = IndexLayout(index_path)
     meta = Metadata.from_dict(load_json(layout.metadata))
 
     centroids = np.asarray(load_npy(layout.centroids), np.float32)
     packed_dim = centroids.shape[1] * meta.nbits // 8
     chunks = range(meta.num_chunks)
-    codes_list: List[np.ndarray] = [
-        np.asarray(load_npy(layout.chunk_codes(i))) for i in chunks
-    ]
-    res_list: List[np.ndarray] = [
-        np.asarray(load_npy(layout.chunk_residuals(i))) for i in chunks
-    ]
+    code_paths = [str(layout.chunk_codes(i)) for i in chunks]
+    res_paths = [str(layout.chunk_residuals(i)) for i in chunks]
     doclens_list: List[np.ndarray] = [
         np.asarray(load_json(layout.chunk_doclens(i)), np.int64) for i in chunks
     ]
-    codes = np.concatenate(codes_list) if codes_list else np.zeros(0, np.int64)
-    residuals = (
-        np.concatenate(res_list)
-        if res_list
-        else np.zeros((0, packed_dim), np.uint8)
+    chunk_bytes = sum(
+        os.path.getsize(p) for p in code_paths + res_paths if os.path.exists(p)
     )
+    cache_on = merge_cache.enabled(chunk_bytes, meta.num_chunks)
+    hit = (
+        merge_cache.load_merged(layout.root, code_paths, res_paths)
+        if cache_on
+        else None
+    )
+    if hit is not None:
+        codes, residuals = hit
+    else:
+        codes = residuals = None
+        if meta.num_chunks and native.available():
+            first_codes = np.asarray(load_npy(code_paths[0], mmap=True))
+            codes = native.merge_chunk_payloads(code_paths, first_codes.dtype)
+            residuals = native.merge_chunk_payloads(
+                res_paths, np.uint8, (packed_dim,)
+            )
+        if codes is None:
+            codes_list = [np.asarray(load_npy(p)) for p in code_paths]
+            codes = (
+                np.concatenate(codes_list) if codes_list else np.zeros(0, np.int64)
+            )
+        if residuals is None:
+            res_list = [np.asarray(load_npy(p)) for p in res_paths]
+            residuals = (
+                np.concatenate(res_list)
+                if res_list
+                else np.zeros((0, packed_dim), np.uint8)
+            )
+        if cache_on:
+            merge_cache.store_merged(
+                layout.root, codes, residuals, code_paths, res_paths
+            )
     doclens = (
         np.concatenate(doclens_list) if doclens_list else np.zeros(0, np.int64)
     )

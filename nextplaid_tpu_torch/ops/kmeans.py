@@ -12,7 +12,8 @@ match the reference bit for bit:
 The JAX package splits each Lloyd iteration into assign / sort / blocked
 cumulative-sum programs because scatter-adds are slow and large programs
 compile slowly on a TPU. Here an iteration is a chunked f32 argmax and an
-f32 `index_add_` of the points into their clusters.
+f32 sum of the points into their clusters, in a fixed order on the card
+(`index_put_` with accumulate) so that training is reproducible.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from nextplaid_tpu_torch.ops.codec import assign_codes
+from nextplaid_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 @dataclass(frozen=True)
@@ -84,7 +86,18 @@ def lloyd(
     k = centroids.shape[0]
     for _ in range(iters):
         codes = assign_codes(data, centroids, chunk_rows=assign_chunk).long()
-        sums = torch.zeros_like(centroids).index_add_(0, codes, data)
+        sums = torch.zeros_like(centroids)
+        # Sums in a fixed order on either device, so a build retrained from
+        # the same sample (a resumed streamed build's reference) writes the
+        # same bytes. On the card index_add_ sums with atomics, in no fixed
+        # order, and index_put_'s accumulate sorts the indices first; on the
+        # CPU it is the other way round: index_put_'s accumulate splits the
+        # rows over threads and can differ from run to run, index_add_ sums
+        # serially in index order.
+        if data.is_cuda:
+            sums.index_put_((codes,), data, accumulate=True)
+        else:
+            sums.index_add_(0, codes, data)
         counts = torch.bincount(codes, minlength=k).to(torch.float32)
         means = sums / torch.clamp(counts, min=1.0)[:, None]
         centroids = torch.where(counts[:, None] > 0, means, centroids)
@@ -95,13 +108,15 @@ def prepare_training_sample(
     documents_embeddings: Sequence[np.ndarray],
     config: KMeansConfig = KMeansConfig(),
     flat_device: Optional[torch.Tensor] = None,
-    device: torch.device = torch.device("cpu"),
+    device: DeviceLike = None,
 ):
     """Sampling/sizing front half of centroid training (next-plaid
     src/kmeans.rs:261-330): sample docs, derive K, cap points per centroid.
 
-    Returns (data_dev [N, d] tensor on `device`, k, rng, samples_host [N, d]).
+    Returns (data_dev [N, d] tensor on `device` ("cuda" when None), k, rng,
+    samples_host [N, d]).
     """
+    device = resolve_device(device)
     if len(documents_embeddings) == 0:
         raise ValueError("No documents provided")
     num_documents = len(documents_embeddings)
@@ -149,9 +164,10 @@ def compute_kmeans(
     documents_embeddings: Sequence[np.ndarray],
     config: KMeansConfig = KMeansConfig(),
     flat_device: Optional[torch.Tensor] = None,
-    device: torch.device = torch.device("cpu"),
+    device: DeviceLike = None,
 ) -> np.ndarray:
-    """Train centroids from per-document embedding arrays.
+    """Train centroids from per-document embedding arrays on `device`
+    ("cuda" when None).
 
     Returns [K, d] float32 L2-normalized centroids.
     """

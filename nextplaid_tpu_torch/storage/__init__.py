@@ -1,4 +1,6 @@
-"""Host-side persistence: NPY index directories, atomic writes, file locks."""
+"""Host-side persistence: NPY index directories, atomic writes, file locks;
+the native host library (`native`), the merged-chunk cache (`merge_cache`)
+and the fast-plaid converter (`convert`)."""
 
 from nextplaid_tpu_torch.storage.npy import (  # noqa: F401
     IndexLayout,

@@ -9,7 +9,15 @@ still be equal, and a residual value may land in another bucket only where
 it lies within 5e-5 of every cutoff between the two buckets. (With ~2
 tokens per centroid many residuals are ~0, and three cutoffs sit within
 1e-6 of 0.) Each package loads the directory the other wrote.
+
+A streamed build interrupted and resumed writes the bytes of the JAX
+package's resumed build (with the JAX Lloyd iterations carried across) and
+of an uninterrupted build, skips the chunks already written, and refuses a
+directory trained under another config or holding another corpus.
 """
+
+import filecmp
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,15 +25,19 @@ import pytest
 import torch
 
 import nextplaid_tpu.index as jax_index
+from nextplaid_tpu.ops import kmeans as jax_kmeans
 from nextplaid_tpu_torch.index import (
     DeviceIndex,
     IndexConfig,
     create_index,
     create_index_from_device,
+    create_index_streamed,
 )
-from nextplaid_tpu_torch.index.build import build_ivf
+from nextplaid_tpu_torch.index.build import DeviceChunk, build_ivf
+from nextplaid_tpu_torch.ops import kmeans as torch_kmeans
 from nextplaid_tpu_torch.ops.codec import unpack_buckets
 from nextplaid_tpu_torch.storage.npy import IndexLayout
+from nextplaid_tpu_torch.utils.errors import StorageError
 
 
 def _corpus(seed=0, n_docs=40, dim=32):
@@ -154,3 +166,127 @@ def test_unported_structure_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_index(_corpus(n_docs=3), str(tmp_path / "i"),
                      IndexConfig(centroid_structure="rq"), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Streamed build: resume after an interruption
+# ---------------------------------------------------------------------------
+
+
+class _Interrupted(RuntimeError):
+    pass
+
+
+def _device_chunks(docs, to_tensor, chunk_docs=10, stop=None):
+    for i, s in enumerate(range(0, len(docs), chunk_docs)):
+        if i == stop:
+            raise _Interrupted(f"chunk {i}")
+        batch = docs[s : s + chunk_docs]
+        yield (to_tensor(np.concatenate(batch)),
+               np.asarray([d.shape[0] for d in batch], np.int64))
+
+
+def _torch_build(docs, path, cfg=None, stop=None, resume=False):
+    chunks = (DeviceChunk(tokens=t, doclens=d)
+              for t, d in _device_chunks(docs, torch.from_numpy, stop=stop))
+    flat = np.concatenate(docs)
+    return create_index_streamed(
+        chunks, path, cfg or IndexConfig(nbits=2, seed=42),
+        sample_tokens=torch.from_numpy(flat), est_total_tokens=flat.shape[0],
+        resume=resume, device="cpu",
+    )
+
+
+def _jax_build(docs, path, stop=None, resume=False):
+    chunks = (jax_index.build.DeviceChunk(tokens=t, doclens=d)
+              for t, d in _device_chunks(docs, jnp.asarray, stop=stop))
+    flat = np.concatenate(docs)
+    return jax_index.create_index_streamed(
+        chunks, path, jax_index.IndexConfig(nbits=2, seed=42),
+        sample_tokens=jnp.asarray(flat), est_total_tokens=flat.shape[0], resume=resume,
+    )
+
+
+def _files(path):
+    return sorted(n for n in os.listdir(path) if not n.startswith(".nextplaid"))
+
+
+def _assert_same_files(a, b):
+    assert _files(a) == _files(b)
+    differ = [n for n in _files(a)
+              if not filecmp.cmp(os.path.join(a, n), os.path.join(b, n), shallow=False)]
+    assert differ == []
+
+
+@pytest.fixture
+def carried_lloyd(monkeypatch):
+    """The port's Lloyd iterations return the JAX package's for the same
+    inputs, so both packages train the same centroids."""
+
+    def jax_lloyd(data, init, iters, assign_chunk=65536):
+        out = jax_kmeans.lloyd(jnp.asarray(data.numpy()), jnp.asarray(init.numpy()),
+                               iters=iters, assign_chunk=assign_chunk)
+        return torch.from_numpy(np.array(out))
+
+    monkeypatch.setattr(torch_kmeans, "lloyd", jax_lloyd)
+
+
+def test_resumed_streamed_build_matches_jax(carried_lloyd, tmp_path):
+    docs = _corpus(seed=3)
+    ours, ref, fresh = (str(tmp_path / n) for n in ("torch", "jax", "fresh"))
+    with pytest.raises(_Interrupted):
+        _torch_build(docs, ours, stop=2)
+    with pytest.raises(_Interrupted):
+        _jax_build(docs, ref, stop=2)
+    written = [n for n in _files(ours) if n.split(".")[0] in ("0", "1") or
+               n in ("doclens.0.json", "doclens.1.json")]
+    assert len(written) == 8 and not os.path.exists(os.path.join(ours, "metadata.json"))
+    mtimes = {n: os.stat(os.path.join(ours, n)).st_mtime_ns for n in written}
+    meta = _torch_build(docs, ours, resume=True)
+    _jax_build(docs, ref, resume=True)
+    assert meta.num_chunks == 4 and meta.num_embeddings == sum(len(d) for d in docs)
+    assert {n: os.stat(os.path.join(ours, n)).st_mtime_ns for n in written} == mtimes
+    _assert_same_files(ours, ref)
+    _torch_build(docs, fresh)
+    _assert_same_files(ours, fresh)
+
+
+def test_resume_refuses_another_fingerprint_or_corpus(tmp_path):
+    docs = _corpus(seed=4)
+    path = str(tmp_path / "idx")
+    with pytest.raises(_Interrupted):
+        _torch_build(docs, path, stop=2)
+    for cfg in (IndexConfig(nbits=4, seed=42), IndexConfig(nbits=2, seed=7)):
+        with pytest.raises(StorageError, match="resume refused"):
+            _torch_build(docs, path, cfg, resume=True)
+    moved = list(docs)
+    moved[0], moved[1] = docs[0][:-1], np.concatenate([docs[0][-1:], docs[1]])
+    with pytest.raises(StorageError, match="different corpus"):
+        _torch_build(moved, path, resume=True)
+    assert _torch_build(docs, path, resume=True).num_documents == len(docs)
+
+
+def test_resume_without_fingerprint_retrains(tmp_path, caplog):
+    docs = _corpus(seed=5)
+    path, fresh = str(tmp_path / "idx"), str(tmp_path / "fresh")
+    with pytest.raises(_Interrupted):
+        _torch_build(docs, path, stop=2)
+    os.unlink(IndexLayout(path).streamed_fingerprint)
+    with caplog.at_level("WARNING", logger="nextplaid_tpu_torch.index.build"):
+        _torch_build(docs, path, resume=True)
+    assert any("no fingerprint file" in r.getMessage() for r in caplog.records)
+    assert IndexLayout(path).streamed_fingerprint.exists()
+    _torch_build(docs, fresh)
+    _assert_same_files(path, fresh)
+
+
+def test_resume_over_rq_sidecars_raises(tmp_path):
+    docs = _corpus(seed=6)
+    path = str(tmp_path / "idx")
+    with pytest.raises(_Interrupted):
+        _torch_build(docs, path, stop=1)
+    layout = IndexLayout(path)
+    np.save(layout.rq_coarse, np.zeros((2, 32), np.float32))
+    np.save(layout.rq_fine, np.zeros((2, 32), np.float32))
+    with pytest.raises(NotImplementedError, match="RQ"):
+        _torch_build(docs, path, resume=True)

@@ -17,7 +17,7 @@ from nextplaid_tpu_torch.index.build import create_index_from_device
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.dirname(nextplaid_tpu_torch.__file__)
 GOLDEN = os.path.join(ROOT, "tests", "golden", "index_nbits4")
-FORBIDDEN = ("jax", "nextplaid_tpu")
+FORBIDDEN = ("jax", "flax", "nextplaid_tpu")
 
 
 def _sources():
@@ -46,9 +46,12 @@ def test_import_leaves_jax_out():
         "nextplaid_tpu_torch.ops.maxsim_variants, nextplaid_tpu_torch.index.search, "
         "nextplaid_tpu_torch.filtering, nextplaid_tpu_torch.filtering.text_search, "
         "nextplaid_tpu_torch.index.update, nextplaid_tpu_torch.index.delete, "
-        "nextplaid_tpu_torch.index.embeddings\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'nextplaid_tpu') or "
-        "m.startswith(('jax.', 'nextplaid_tpu.'))]\n"
+        "nextplaid_tpu_torch.index.embeddings, nextplaid_tpu_torch.encoder, "
+        "nextplaid_tpu_torch.encoder.hub, nextplaid_tpu_torch.storage, "
+        "nextplaid_tpu_torch.storage.native, nextplaid_tpu_torch.storage.merge_cache, "
+        "nextplaid_tpu_torch.storage.convert\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'nextplaid_tpu') or "
+        "m.startswith(('jax.', 'flax.', 'nextplaid_tpu.'))]\n"
         "print(bad)\n"
     )
     out = subprocess.run(

@@ -46,6 +46,17 @@ def test_lloyd_matches_jax_from_same_init():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def test_lloyd_is_bit_reproducible():
+    """Two runs on the same data give the same bits (a resumed streamed
+    build retrains and must write the centroids of an uninterrupted one),
+    at a size where the rows of one cluster are summed over many threads."""
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(rng.standard_normal((200_000, 32)).astype(np.float32))
+    init = data[torch.from_numpy(rng.permutation(200_000)[:512])]
+    runs = [kmeans.lloyd(data, init, iters=2) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
 def test_lloyd_empty_cluster_keeps_centroid():
     data = np.asarray([[1, 0, 0, 0], [0.9, 0.1, 0, 0]], np.float32)
     init = np.asarray([[1, 1, 1, 1], [-100, 0, 0, 0]], np.float32)
@@ -63,7 +74,7 @@ def test_compute_kmeans_matches_jax(subsample):
     # max_points_per_centroid=4 forces the per-centroid subsample draw.
     cfg = dict(seed=7, num_partitions=16,
                max_points_per_centroid=4 if subsample else 256)
-    got = kmeans.compute_kmeans(docs, kmeans.KMeansConfig(**cfg))
+    got = kmeans.compute_kmeans(docs, kmeans.KMeansConfig(**cfg), device="cpu")
     want = jax_kmeans.compute_kmeans(docs, jax_kmeans.KMeansConfig(**cfg))
     assert got.shape == want.shape == (16, 16)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
@@ -73,10 +84,21 @@ def test_training_sample_bit_identical():
     rng = np.random.default_rng(2)
     docs = [rng.standard_normal((9, 8)).astype(np.float32) for _ in range(30)]
     cfg = dict(seed=3, max_points_per_centroid=2)
-    data, k, _, host = kmeans.prepare_training_sample(docs, kmeans.KMeansConfig(**cfg))
+    data, k, _, host = kmeans.prepare_training_sample(
+        docs, kmeans.KMeansConfig(**cfg), device="cpu"
+    )
     jdata, jk, _, jhost = jax_kmeans.prepare_training_sample(
         docs, jax_kmeans.KMeansConfig(**cfg)
     )
     assert k == jk
     np.testing.assert_array_equal(host, jhost)
     np.testing.assert_array_equal(data.numpy(), np.asarray(jdata))
+
+
+def test_no_device_means_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    docs = [np.eye(4, 8, dtype=np.float32)] * 3
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kmeans.compute_kmeans(docs, kmeans.KMeansConfig(num_partitions=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kmeans.prepare_training_sample(docs)
