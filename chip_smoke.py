@@ -52,6 +52,21 @@ port's paths:
      bf16 pin; 320 encoded excerpt queries through `search_batch`, recall@10
      against the f32 oracle; the BERT family's throughput at
      answerai-colbert-small's widths.
+  8. the REST service (this slice's path), after the encoder phase: the
+     SciFact index as built (a copy kept before the mutations) with the
+     server's config.json and metadata + FTS on every doc, the encoder at
+     GTE-ModernColBERT-v1's widths, `nextplaid_tpu_torch.api.server.build_app`
+     on a thread of this process, driven over HTTP by the port's SDK:
+     64-query base64 requests from 8 clients, single-query requests from 16
+     (coalesced), filtered and hybrid searches, text queries, /encode and
+     /rerank_with_encoding, three ingest batches appended in place into the
+     served grid (its data_ptr unchanged) and /update_with_encoding,
+     serve_mode grid_only (the int8 kernel) on a copy; every answer held
+     against the same call in process; one request split by stage (the
+     parse, search_batch, the metadata attach, JSON both ways, against the
+     same request over HTTP); then the server as a subprocess
+     (`python -m nextplaid_tpu_torch.api.server --device cuda`), which must
+     answer and exit 0 within 10 s of SIGTERM.
 The megascale path also loads its host arrays twice with the merge cache
 forced on (a native merge that stores the cache, then a hit), both held
 against numpy's concatenation; the native host library is built from
@@ -453,7 +468,8 @@ def check_results(results, n, k=10):
 def scifact_phases(device, mk):
     """The first slice's main path (bf16 pin) and the int8 pin of the same index, then
     the mutation phase on that index. Returns the two kernels' entries of
-    the kernels line and the mutation phase's numbers."""
+    the kernels line, the mutation phase's numbers, and the corpus's topics
+    and queries; leaves a copy of the index as built at SERVICE_SRC."""
     from nextplaid_tpu_torch.index import (
         DeviceIndex, IndexConfig, SearchParameters, create_index_from_device, search_batch,
     )
@@ -564,7 +580,10 @@ def scifact_phases(device, mk):
         del pinned, unpinned, q_dev, oracle
         gc.collect()
         torch.cuda.empty_cache()
-        return entries, mutation_phase(device, mk, path, topics, queries)
+        # The service phase serves this index as built, before the mutations.
+        shutil.rmtree(SERVICE_SRC, ignore_errors=True)
+        shutil.copytree(path, SERVICE_SRC)
+        return entries, mutation_phase(device, mk, path, topics, queries), (topics, queries)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -1658,6 +1677,580 @@ def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BE
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
 
+# Service phase: the REST server (nextplaid_tpu_torch.api) on the SciFact
+# index with metadata + FTS, the encoder at GTE-ModernColBERT-v1's widths,
+# driven over HTTP by the port's SDK.
+SERVICE_DIR = os.path.join(ROOT, "build", "chip_smoke_service")
+SERVICE_SRC = os.path.join(ROOT, "build", "chip_smoke_scifact")  # scifact_phases' index, kept
+SVC_CLIENTS = 8  # concurrent clients of the 64-query requests
+SVC_REQUEST_QUERIES = 64
+SVC_PASSES = 3
+SVC_SINGLE_CLIENTS = 16  # concurrent clients of the single-query requests
+SVC_FILTER = ("year <= ?", [1993])  # doc_metadata's year 1990 + i % 35: 4 in 35 docs
+SVC_ALPHA = 0.75
+SVC_TEXT_QUERIES = 64
+SVC_QUERY_WORDS = 20
+SVC_ENCODE_REQUESTS = 3  # of 64 documents (MAX_BATCH_TEXTS) each
+SVC_ENCODE_WORDS = 300
+SVC_RERANK_DOCS = 32
+SVC_INGEST_BATCHES = 3  # of MUT_BATCH docs: 96 buffered docs stay below buffer_size 100
+SVC_SIGTERM_S = 10
+SVC_STAGE_REPS = 20  # runs of each stage of one request, split by stage
+# HTTP top-10 vs in-process search_batch: the same kernel on the same grid,
+# other batch compositions (launch plans); scores within this fraction.
+SVC_RTOL = 1e-4
+
+
+class ServiceThread:
+    """The port's server in this process: `build_app` run by aiohttp on its
+    own event loop in a thread, on 127.0.0.1 at a free port."""
+
+    def __init__(self, index_dir, encoder, device):
+        import asyncio
+        import threading
+
+        from aiohttp import web
+
+        from nextplaid_tpu_torch.api.server import build_app
+
+        self.app = build_app(index_dir, encoder=encoder, device=device)
+        self.loop = asyncio.new_event_loop()
+        started, failed = threading.Event(), []
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+            runner = web.AppRunner(self.app)
+            try:
+                self.loop.run_until_complete(runner.setup())
+                self.loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", 0).start())
+                self.port = runner.addresses[0][1]
+            except BaseException as e:  # reported by __init__
+                failed.append(e)
+                started.set()
+                return
+            started.set()
+            self.loop.run_forever()
+            self.loop.run_until_complete(runner.cleanup())
+            self.loop.close()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        if not started.wait(600) or failed:
+            raise AssertionError(f"the server did not start: {failed}")
+
+    @property
+    def url(self):
+        return f"http://127.0.0.1:{self.port}"
+
+    @property
+    def state(self):
+        return self.app["state"]
+
+    def stop(self):
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=120)
+        if self.thread.is_alive():
+            raise AssertionError("the server thread did not stop")
+
+
+def http_results(body):
+    """A /search response's results as objects with passage_ids and scores."""
+    import types
+
+    return [types.SimpleNamespace(passage_ids=r["document_ids"], scores=r["scores"],
+                                  metadata=r["metadata"]) for r in body["results"]]
+
+
+def kernel_busy_ms(intervals):
+    """Union length (ms) of [start, end] intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+@contextlib.contextmanager
+def timed_kernel_launches(mk):
+    """Record CUDA events around every bf16 kernel launch; yields a list that
+    receives the (start, end) ms of each launch's window after the block,
+    relative to an event recorded before it."""
+    real, events, windows = mk._launch, [], []
+    origin = torch.cuda.Event(enable_timing=True)
+    origin.record()
+
+    def timed(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    mk._launch = timed
+    try:
+        yield windows
+    finally:
+        mk._launch = real
+        torch.cuda.synchronize()
+        windows.extend((origin.elapsed_time(s), origin.elapsed_time(e)) for s, e in events)
+
+
+def run_clients(n_clients, jobs, url):
+    """Run `jobs` (callables taking a client) on `n_clients` threads, each
+    with its own SDK client; returns (results in job order, wall s,
+    per-job latencies s)."""
+    from concurrent.futures import ThreadPoolExecutor
+    import threading
+
+    from nextplaid_tpu_torch.client import NextPlaidClient
+
+    local = threading.local()
+
+    def run(job):
+        if not hasattr(local, "client"):
+            local.client = NextPlaidClient(url, timeout=600)
+        t0 = time.perf_counter()
+        out = job(local.client)
+        return out, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(n_clients) as pool:
+        done = list(pool.map(run, jobs))
+    wall = time.perf_counter() - t0
+    return [d[0] for d in done], wall, [d[1] for d in done]
+
+
+def median_ms(fn, reps):
+    """Median wall ms of `fn()` over `reps` runs, each ended by a sync."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def request_stages(client, index, path, queries, reps=SVC_STAGE_REPS):
+    """One /search request of `queries` (base64 f32) split by stage, each
+    timed alone on this thread with the server's own functions on the
+    previous stage's output: the client's payload, the server's parse,
+    `search_batch`, the results' formatting, the metadata attach, the
+    response's and the client's JSON. Returns {stage: median ms}, the same
+    request's median ms over HTTP from one sequential client, and the
+    request's and the response's bytes."""
+    from nextplaid_tpu_torch.api import models as dto
+    from nextplaid_tpu_torch.api.server import _attach_metadata, _search_params
+    from nextplaid_tpu_torch.client.client import _doc_payload
+    from nextplaid_tpu_torch.index import search_batch
+
+    def payload():
+        return json.dumps({"queries": [_doc_payload(q) for q in queries],
+                           "params": {"top_k": 10}})
+
+    body = payload()
+    parsed = json.loads(body)
+    req = dto.SearchRequest(**parsed)
+    arrays = [q.to_array() for q in req.queries]
+    params = _search_params(req.params)
+    results = search_batch(index, arrays, params)
+
+    def fmt():
+        return [{"query_id": i, "document_ids": list(r.passage_ids),
+                 "scores": [float(x) for x in r.scores]} for i, r in enumerate(results)]
+
+    out = fmt()
+    _attach_metadata(path, out)  # sets each result's "metadata": repeatable
+    reply = {"results": out, "num_queries": len(out)}
+    response = json.dumps(reply)
+    ms = {
+        "client payload (base64, json.dumps)": median_ms(payload, reps),
+        "server json.loads": median_ms(lambda: json.loads(body), reps),
+        "server pydantic model": median_ms(lambda: dto.SearchRequest(**parsed), reps),
+        "server decode_embeddings": median_ms(lambda: [q.to_array() for q in req.queries], reps),
+        "server search_batch": median_ms(lambda: search_batch(index, arrays, params), reps),
+        "server format results": median_ms(fmt, reps),
+        "server _attach_metadata": median_ms(lambda: _attach_metadata(path, out), reps),
+        "server response json.dumps": median_ms(lambda: json.dumps(reply), reps),
+        "client json.loads": median_ms(lambda: json.loads(response), reps),
+    }
+    http_ms = median_ms(lambda: client.search("scifact", queries, top_k=10), reps)
+    return ms, http_ms, len(body), len(response)
+
+
+def service_phase(device, mk, src_path, topics, queries, widths=GTE_WIDTHS):
+    """This slice's main path: the REST service on the card. The SciFact
+    index (a copy of `src_path`, with the server's config.json, metadata and
+    FTS on every doc) and the encoder at GTE-ModernColBERT-v1's widths behind
+    `build_app`, in this process; traffic through the port's SDK: (a) the
+    queries as 64-query base64 requests from 8 clients, (b) one query a
+    request from 16 clients, (c) filtered and hybrid searches, (d) text
+    queries, /encode and /rerank_with_encoding, (e) three ingest batches
+    appended in place into the served grid, then /update_with_encoding, (f)
+    serve_mode grid_only (the int8 kernel) on a copy, (h) one request split
+    by stage; then (g) the server as a subprocess, stopped by SIGTERM. Each
+    answer is held against the same call in process, and each kernel
+    against its plain version at a request's shapes. Removes `src_path`
+    when done. Returns the two kernels' launches in the phase and their
+    largest differences from the plain versions."""
+    from nextplaid_tpu_torch import filtering
+    from nextplaid_tpu_torch.api import state as port_state
+    from nextplaid_tpu_torch.api.models import IndexConfigStored
+    from nextplaid_tpu_torch.client import NextPlaidClient
+    from nextplaid_tpu_torch.client.client import _doc_payload
+    from nextplaid_tpu_torch.encoder import BackboneConfig, Colbert, init_random_params
+    from nextplaid_tpu_torch.filtering import text_search
+    from nextplaid_tpu_torch.index import DeviceIndex, SearchParameters, load_grid_only, search_batch
+    from nextplaid_tpu_torch.index.exact import quantize_queries_int8
+    from nextplaid_tpu_torch.index.search import _pad_queries
+    from nextplaid_tpu_torch.ops.maxsim import maxsim_score
+    from nextplaid_tpu_torch.storage.npy import atomic_write_json, load_json
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    index_dir = os.path.join(SERVICE_DIR, "indices")
+    path, grid_path = os.path.join(index_dir, "scifact"), os.path.join(index_dir, "scifact_grid")
+    bf16, int8 = mk.maxsim_grid_scores, mk.maxsim_grid_scores_int8i
+    try:
+        shutil.copytree(src_path, path)
+        n0 = load_json(os.path.join(path, "metadata.json"))["num_documents"]
+        filtering.create(path, doc_metadata(range(n0)), list(range(n0)))
+        text_search.index(path, doc_metadata(range(n0)), list(range(n0)))
+        atomic_write_json(os.path.join(path, "config.json"), IndexConfigStored().model_dump())
+        shutil.copytree(path, grid_path)
+        atomic_write_json(os.path.join(grid_path, "config.json"),
+                          IndexConfigStored(serve_mode="grid_only").model_dump())
+        bcfg = BackboneConfig(**widths)
+        tok = WhitespaceTokenizer(bcfg.vocab_size)
+        enc = Colbert(config=colbert_config(tok, bcfg.projection_dim), backbone_config=bcfg,
+                      tokenizer=tok, params=init_random_params(bcfg, seed=0),
+                      batch_size=ENC_BATCH, device=device)
+        texts = make_texts(SVC_ENCODE_REQUESTS * SVC_REQUEST_QUERIES, SVC_ENCODE_WORDS,
+                           tok.n_words, seed=5)
+        text_queries, _ = excerpt_queries(texts, SVC_TEXT_QUERIES, SVC_QUERY_WORDS, seed=6)
+
+        # In-process references, loaded as AppState loads (before any ingest).
+        params = SearchParameters(top_k=10)
+        n_eval, nq = 64, len(queries)
+        oracle = search_batch(DeviceIndex.load(path, device=device), queries[:n_eval],
+                              SearchParameters(top_k=10, mode="exact", stage1_precision="highest"))
+        ref = DeviceIndex.load(path, capacity_factor=port_state.SERVE_CAPACITY_FACTOR,
+                               grid_aware_capacity=True, device=device).with_token_grid()
+        if ref.token_grid is None or ref.grid_is_int8:
+            raise AssertionError("the served load did not pin a bf16 grid")
+        want = search_batch(ref, queries, params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SVC_PASSES):
+            want = search_batch(ref, queries, params)
+        inproc_qps = SVC_PASSES * nq / (time.perf_counter() - t0)
+        qc = queries[:SVC_REQUEST_QUERIES]
+        subset = filtering.where_condition(path, *SVC_FILTER)
+        want_filtered = search_batch(ref, qc, params, subset=subset)
+        kw_text = [f"{TITLE_WORDS[i % len(TITLE_WORDS)]} study" for i in range(len(qc))]
+        sem = search_batch(ref, qc, SearchParameters(top_k=30))
+        kw = [text_search.search(path, text_search.sanitize_fts5_query(t), 30) for t in kw_text]
+        want_text = [search_batch(ref, enc.encode_queries([t]), params) for t in text_queries]
+        ref_grid = load_grid_only(grid_path, dtype="int8", device=device)
+        want_grid = search_batch(ref_grid, queries, params)
+        enc.encode_documents(texts[:SVC_REQUEST_QUERIES])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode_documents(texts)
+        inproc_docs_s = len(texts) / (time.perf_counter() - t0)
+        setup_s = time.perf_counter() - t_phase
+
+        t0 = time.perf_counter()
+        server = ServiceThread(index_dir, enc, device)
+        start_s = time.perf_counter() - t0
+        client = NextPlaidClient(server.url, timeout=600)
+        launches = {}
+        state_log = _Messages()
+        logging.getLogger("nextplaid_tpu_torch.api.state").addHandler(state_log)
+        try:
+            health = client.health()
+            if health["model"]["embedding_dim"] != bcfg.projection_dim or [
+                i["name"] for i in health["indices"]
+            ] != ["scifact", "scifact_grid"]:
+                raise AssertionError(f"/health: {health}")
+            # The first request loads and pins the index: outside the count.
+            client.search("scifact", queries[:SVC_REQUEST_QUERIES], top_k=10)
+            client.search("scifact_grid", queries[:SVC_REQUEST_QUERIES], top_k=10)
+            bf16.launches = int8.launches = 0
+
+            def step(label, kernel):
+                """Note the kernel's count before a step (`grew` after it)."""
+                launches[label] = kernel.launches
+
+            def grew(label, kernel):
+                """The step's launches; fail if none."""
+                n = kernel.launches - launches[label]
+                if n <= 0:
+                    raise AssertionError(f"service ({label}) launched its kernel {n} times")
+                launches[label] = n
+
+            def batch_requests(name):
+                chunks = [queries[s : s + SVC_REQUEST_QUERIES]
+                          for s in range(0, nq, SVC_REQUEST_QUERIES)]
+                jobs = [lambda c, q=q: c.search(name, q, top_k=10)
+                        for _ in range(SVC_PASSES * SVC_CLIENTS) for q in chunks]
+                return run_clients(SVC_CLIENTS, jobs, server.url), len(chunks)
+
+            # (a) 64-query base64 requests, 8 clients.
+            step("a", bf16)
+            with timed_kernel_launches(mk) as windows:
+                (out, wall_a, _), per_pass = batch_requests("scifact")
+            grew("a", bf16)
+            got = [r for body in out for r in http_results(body)]
+            for p in range(0, len(got), nq):
+                assert_same_topk(got[p : p + nq], want, SVC_RTOL, "service (a) vs in-process")
+            recall = recall_at_10(got[:n_eval], oracle)
+            if recall < MIN_RECALL:
+                raise AssertionError(f"service (a) recall@10 {recall} < {MIN_RECALL}")
+            if any(m is None or m["_subset_"] != i for r in got[:nq]
+                   for i, m in zip(r.passage_ids, r.metadata)):
+                raise AssertionError("service (a): metadata missing or misattached")
+            qps_a = len(got) / wall_a
+            share = kernel_busy_ms(windows) / (1e3 * wall_a)
+            print(f"service (a) [{SVC_CLIENTS} clients, each {SVC_PASSES} passes of {per_pass} "
+                  f"requests of {SVC_REQUEST_QUERIES} queries, base64 f32]: {len(got)} queries "
+                  f"in {wall_a:.3f} s, {qps_a:.1f} QPS; in-process search_batch of the {nq} "
+                  f"queries {inproc_qps:.1f} QPS; bf16 kernel busy {100 * share:.1f}% of the "
+                  f"wall ({len(windows)} launches, CUDA events); recall@10 vs f32 oracle "
+                  f"{recall:.4f}; top-10 = in-process", flush=True)
+
+            # (b) one query a request, 16 clients (coalesced on the server).
+            step("b", bf16)
+            jobs = [lambda c, q=q: c.search("scifact", [q], top_k=10) for q in queries]
+            out, wall_b, lat = run_clients(SVC_SINGLE_CLIENTS, jobs, server.url)
+            grew("b", bf16)
+            assert_same_topk([http_results(b)[0] for b in out], want, SVC_RTOL,
+                             "service (b) vs in-process")
+            lat_ms = sorted(1e3 * x for x in lat)
+            print(f"service (b) [{nq} single-query requests, {SVC_SINGLE_CLIENTS} clients]: "
+                  f"{nq / wall_b:.1f} QPS, latency p50 {lat_ms[len(lat_ms) // 2]:.2f} ms, p95 "
+                  f"{lat_ms[int(0.95 * len(lat_ms))]:.2f} ms; top-10 = in-process", flush=True)
+
+            # (c) filtered, then hybrid under both fusions.
+            step("c", bf16)
+            body = client.search("scifact", qc, top_k=10, filter_condition=SVC_FILTER[0],
+                                 filter_parameters=SVC_FILTER[1])
+            got = http_results(body)
+            if not set(i for r in got for i in r.passage_ids) <= set(subset):
+                raise AssertionError("service (c): a filtered result lies outside the subset")
+            assert_same_topk(got, want_filtered, SVC_RTOL, "service (c) filtered vs in-process")
+            for fusion in ("relative_score", "rrf"):
+                body = client.search("scifact", qc, top_k=10, text_query=kw_text,
+                                     alpha=SVC_ALPHA, fusion=fusion)
+                fused = []
+                for s, (kw_ids, kw_scores) in zip(sem, kw):
+                    if fusion == "rrf":
+                        ids, scores = text_search.fuse_rrf(s.passage_ids, kw_ids, SVC_ALPHA, 10)
+                    else:
+                        ids, scores = text_search.fuse_relative_score(
+                            s.passage_ids, s.scores, kw_ids, kw_scores, SVC_ALPHA, 10)
+                    fused.append((ids, scores))
+                for r, (ids, scores) in zip(http_results(body), fused):
+                    if r.passage_ids != ids or not np.allclose(r.scores, scores, rtol=SVC_RTOL,
+                                                               atol=SVC_RTOL):
+                        raise AssertionError(f"service (c) {fusion}: fused list differs")
+            grew("c", bf16)
+            print(f"service (c): filter {SVC_FILTER[0]!r} keeps {len(subset)} of {n0} docs "
+                  f"({100 * len(subset) / n0:.1f}%), {len(qc)} queries answered inside it = "
+                  f"in-process; hybrid (alpha {SVC_ALPHA}) relative_score and rrf = "
+                  f"text_search.fuse_* in process", flush=True)
+
+            # (d) text queries one a request, /encode, /rerank_with_encoding.
+            step("d", bf16)
+            lat = []
+            for t, mine in zip(text_queries, want_text):
+                t0 = time.perf_counter()
+                body = client.search("scifact", [t], top_k=10)
+                lat.append(time.perf_counter() - t0)
+                assert_same_topk(http_results(body), mine, SVC_RTOL, "service (d) vs in-process")
+            grew("d", bf16)
+            client.encode(texts[:SVC_REQUEST_QUERIES])  # warm-up: this shape's first forward
+            t0 = time.perf_counter()
+            encoded = [a for k in range(SVC_ENCODE_REQUESTS) for a in client.encode(
+                texts[k * SVC_REQUEST_QUERIES : (k + 1) * SVC_REQUEST_QUERIES])]
+            encode_s = time.perf_counter() - t0
+            mine = enc.encode_documents(texts[:SVC_REQUEST_QUERIES])
+            cos = min(per_token_cos(torch.from_numpy(g)[None], torch.from_numpy(w)[None],
+                                    torch.ones(1, len(w), dtype=torch.bool))
+                      for g, w in zip(encoded, mine) if g.shape == w.shape)
+            if ([g.shape for g in encoded[: len(mine)]] != [w.shape for w in mine]
+                    or cos < ENC_MIN_COS_BF16):
+                raise AssertionError(f"service (d): /encode differs from in-process ({cos})")
+            ranked = client.rerank(text_queries[0], texts[:SVC_RERANK_DOCS])
+            q_emb = torch.from_numpy(enc.encode_queries([text_queries[0]])[0]).to(device)
+            scores = [float(maxsim_score(q_emb, torch.from_numpy(d).to(device)))
+                      for d in enc.encode_documents(texts[:SVC_RERANK_DOCS])]
+            if not all(abs(r["score"] - scores[r["index"]]) <= SVC_RTOL * abs(scores[r["index"]])
+                       for r in ranked) or len(ranked) != SVC_RERANK_DOCS:
+                raise AssertionError("service (d): /rerank_with_encoding differs from in-process")
+            lat_ms = sorted(1e3 * x for x in lat)
+            n_enc = len(encoded)
+            print(f"service (d): /search_with_encoding of {len(text_queries)} text queries one a "
+                  f"request, p50 {lat_ms[len(lat_ms) // 2]:.2f} ms (p95 "
+                  f"{lat_ms[int(0.95 * len(lat_ms))]:.2f} ms), top-10 = in-process encode + "
+                  f"search; /encode {n_enc} docs of {SVC_ENCODE_WORDS} words in "
+                  f"{SVC_ENCODE_REQUESTS} requests after one warm-up request, "
+                  f"{n_enc / encode_s:.1f} docs/s (in process {inproc_docs_s:.1f}; least cosine "
+                  f"vs in-process {cos:.6f}); /rerank_with_encoding of {SVC_RERANK_DOCS} docs = "
+                  f"in-process", flush=True)
+
+            # (e) ingest: appended in place into the served bf16 grid.
+            step("e", bf16)
+            served = server.state.served("scifact")
+            ptr = served.token_grid.data_ptr()
+            ingest_ms = []
+            for k in range(SVC_INGEST_BATCHES):
+                docs = new_docs(topics, MUT_BATCH, seed=500 + k)
+                first = n0 + k * MUT_BATCH
+                ids = list(range(first, first + MUT_BATCH))
+                t0 = time.perf_counter()
+                resp = client._request("POST", "/indices/scifact/documents", json={
+                    "documents": [_doc_payload(d) for d in docs], "metadata": doc_metadata(ids)})
+                ingest_ms.append(1e3 * (time.perf_counter() - t0))
+                served = server.state.served("scifact")
+                if (resp["start_id"], resp["total_documents"]) != (first, first + MUT_BATCH):
+                    raise AssertionError(f"service (e): ingest answered {resp}")
+                if served.token_grid.data_ptr() != ptr or served.num_documents != first + MUT_BATCH:
+                    raise AssertionError("service (e): the served grid was reloaded, not appended")
+                body = client.search("scifact", [d[:32] for d in docs], top_k=10)
+                if [r.passage_ids[0] for r in http_results(body)] != ids:
+                    raise AssertionError("service (e): a new doc is not its own query's top hit")
+            grew("e", bf16)
+            fallbacks = [m for m in state_log.messages if "falling back" in m]
+            if fallbacks:
+                raise AssertionError(f"service (e): {fallbacks}")
+            t0 = time.perf_counter()
+            resp = client.add("scifact", texts[:MUT_BATCH], doc_metadata(range(MUT_BATCH)))
+            upd_s = time.perf_counter() - t0
+            total = n0 + (SVC_INGEST_BATCHES + 1) * MUT_BATCH
+            if resp["total_documents"] != total or client.get_index("scifact")[
+                "metadata_count"
+            ] != total:
+                raise AssertionError(f"service (e): /update_with_encoding answered {resp}")
+            print(f"service (e): {SVC_INGEST_BATCHES} ingest batches of {MUT_BATCH} docs through "
+                  f"/documents, POST to searchable "
+                  f"{', '.join(f'{x:.1f}' for x in ingest_ms)} ms, each appended in place (grid "
+                  f"data_ptr unchanged, doc count +{MUT_BATCH}), every new doc its own query's "
+                  f"top hit; /update_with_encoding of {MUT_BATCH} texts {upd_s:.2f} s "
+                  f"(centroid expansion and reload), {total} docs", flush=True)
+
+            # (f) serve_mode grid_only: the int8 kernel.
+            step("f", int8)
+            (out, wall_f, _), _ = batch_requests("scifact_grid")
+            grew("f", int8)
+            got = [r for body in out for r in http_results(body)]
+            for p in range(0, len(got), nq):
+                assert_same_topk(got[p : p + nq], want_grid, SVC_RTOL,
+                                 "service (f) grid_only vs in-process")
+            print(f"service (f) [serve_mode grid_only, int8 grid]: {len(got)} queries in "
+                  f"{wall_f:.3f} s, {len(got) / wall_f:.1f} QPS; top-10 = in-process "
+                  f"load_grid_only", flush=True)
+            # (h) one 64-query request, and one single-query request, split
+            # by stage (each stage alone, this thread; then over HTTP from
+            # one sequential client).
+            served = server.state.served("scifact")
+            for label, qs in (("64-query", queries[:SVC_REQUEST_QUERIES]), ("1-query", queries[:1])):
+                ms, http_ms, up, down = request_stages(client, served, path, qs)
+                print(f"service (h) [{label} request, median of {SVC_STAGE_REPS}]: "
+                      + "; ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+                      + f"; sum {sum(ms.values()):.3f} ms; over HTTP, one client "
+                      f"{http_ms:.3f} ms, transport and hops {http_ms - sum(ms.values()):.3f} ms; "
+                      f"{up / 2**20:.3f} MiB up, {down / 2**20:.3f} MiB down", flush=True)
+            # What the subprocess server of (g) must answer on the same files.
+            last = http_results(client.search("scifact", queries[:1], top_k=10))
+            # Each kernel against its plain version at the service's shapes:
+            # a 64-query request over the served grids (after the counts).
+            q_arr, _ = _pad_queries(queries[:SVC_REQUEST_QUERIES], 128)
+            tq = q_arr.shape[1]
+            qflat = torch.from_numpy(q_arr.reshape(-1, 128)).to(device)
+            served = server.state.served("scifact")
+            lens = torch.zeros(served.token_grid.shape[0], dtype=torch.int32, device=device)
+            lens[: served.num_docs_padded] = served.doclens
+            err16 = check_kernel(mk.maxsim_grid_scores, mk.maxsim_grid_scores_reference,
+                                 (qflat.to(torch.bfloat16), served.token_grid, lens, tq),
+                                 f"bf16 service request {SVC_REQUEST_QUERIES}q x "
+                                 f"{tuple(served.token_grid.shape)}")
+            served = server.state.served("scifact_grid")
+            qi8, qs = quantize_queries_int8(qflat)
+            grids = served.grid_buckets or (served.token_grid,)
+            scales = served.scale_buckets or (served.token_scales,)
+            err8 = max(check_kernel(mk.maxsim_grid_scores_int8i,
+                                    mk.maxsim_grid_scores_int8i_reference,
+                                    (qi8, qs, g, sc, tq),
+                                    f"int8 grid_only service request {SVC_REQUEST_QUERIES}q x "
+                                    f"{tuple(g.shape)}")
+                       for g, sc in zip(grids, scales))
+        finally:
+            logging.getLogger("nextplaid_tpu_torch.api.state").removeHandler(state_log)
+            server.stop()
+        bf16_n = sum(launches[k] for k in "abcde")
+        del server, ref, ref_grid, enc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (g) the server as a subprocess: answers, then exits 0 on SIGTERM.
+        import signal
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nextplaid_tpu_torch.api.server", "--host", "127.0.0.1",
+             "--port", str(port), "--index-dir", index_dir, "--device", device.type],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )
+        try:
+            sub = NextPlaidClient(f"http://127.0.0.1:{port}", timeout=300)
+            t0 = time.perf_counter()
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"the server process exited with {proc.returncode}: "
+                                         f"{proc.stdout.read().decode(errors='replace')[-2000:]}")
+                try:
+                    if sub.health()["status"] == "ok":
+                        break
+                except Exception:  # noqa: BLE001 - not listening yet
+                    if time.perf_counter() - t0 > 300:
+                        raise
+                    time.sleep(0.25)
+            up_s = time.perf_counter() - t0
+            assert_same_topk(http_results(sub.search("scifact", queries[:1], top_k=10)), last,
+                             SVC_RTOL, "service (g) vs the in-process server")
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=SVC_SIGTERM_S)
+            stop_s = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"service (g): the server exited {rc} on SIGTERM")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            proc.stdout.close()
+        print(f"service (g): python -m nextplaid_tpu_torch.api.server --device {device.type} "
+              f"healthy after {up_s:.1f} s, answered a search, exited 0 {stop_s:.2f} s after "
+              f"SIGTERM", flush=True)
+        print(f"service: launches bf16 {bf16_n} ("
+              f"{', '.join(f'{k} {launches[k]}' for k in 'abcde')}), int8 {launches['f']}; "
+              f"setup {setup_s:.1f} s, server start {start_s:.1f} s; the phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        return {"bf16": {"service_launches": bf16_n, "service_max_abs_err": err16},
+                "int8": {"service_launches": launches["f"], "service_max_abs_err": err8}}
+    finally:
+        shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+        shutil.rmtree(src_path, ignore_errors=True)
+
+
 def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms, bound_ms, bound_by):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -1724,31 +2317,38 @@ def main() -> int:
     variants = variants_phase(device, mv, mk)
     # Phases 5-6: SciFact scale, bf16 and int8 pins; then the sixth slice's path,
     # mutations of that index.
-    (bf16, _), mutation = scifact_phases(device, mk)
-    # Phase 7: this slice's path, text to a searchable index: the encoder,
-    # a resumed streamed build, load, and search through the bf16 kernel.
+    (bf16, _), mutation, (topics, queries) = scifact_phases(device, mk)
+    # Phase 7: the seventh slice's path, text to a searchable index: the
+    # encoder, a resumed streamed build, load, and search through the bf16
+    # kernel.
     encoder = encoder_phase(device, mk)
-    # Phases 8-9: grid-only int8 serving at scale (with the native merge and
+    # Phase 8: this slice's path, the REST service on the SciFact index with
+    # the encoder, over HTTP through the SDK.
+    service = service_phase(device, mk, SERVICE_SRC, topics, queries)
+    # Phases 9-10: grid-only int8 serving at scale (with the native merge and
     # the merge cache on its host load), then the third slice's main path:
     # staged search over the same corpus's full index.
     int8, staged = grid_only_phase(device, mk)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # Phase 10: the kernels line, then the device line. The bf16 kernel's
+    # Phase 11: the kernels line, then the device line. The bf16 kernel's
     # launches are the SciFact path's, the staged path's, the mutation
-    # phase's and the encoder phase's; its ms, bound and plain ms are the
-    # SciFact pass's, the staged_* keys the stage-4 shape's. The int8
-    # kernel's are the grid-only path's and the mutation phase's.
+    # phase's, the encoder phase's and the service phase's; its ms, bound
+    # and plain ms are the SciFact pass's, the staged_* keys the stage-4
+    # shape's. The int8 kernel's are the grid-only path's, the mutation
+    # phase's and the service phase's.
     bf16_entry = kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:])
     bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged, **mutation["bf16"],
-                      **encoder)
+                      **encoder, **service["bf16"])
     bf16_entry["launches"] += (staged["staged_launches"] + mutation["bf16"]["mutation_launches"]
-                               + encoder["encoder_launches"])
+                               + encoder["encoder_launches"] + service["bf16"]["service_launches"])
     int8_entry = kernel_entry("maxsim_grid_scores_int8i", "nextplaid_tpu_torch/csrc/maxsim_int8.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:150", *int8)
-    int8_entry.update(grid_only_launches=int8_entry["launches"], **mutation["int8"])
-    int8_entry["launches"] += mutation["int8"]["mutation_launches"]
+    int8_entry.update(grid_only_launches=int8_entry["launches"], **mutation["int8"],
+                      **service["int8"])
+    int8_entry["launches"] += (mutation["int8"]["mutation_launches"]
+                               + service["int8"]["service_launches"])
     print(json.dumps({"kernels": [bf16_entry, int8_entry, variants]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

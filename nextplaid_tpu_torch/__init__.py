@@ -5,9 +5,10 @@ build (k-means, 2/4-bit residual codec, IVF, next-plaid's on-disk NPY+JSON
 format), exact search over a pinned bf16 or int8 token grid through
 hand-written CUDA MaxSim kernels for Hopper (sm_90a), the staged PLAID
 pipeline, index mutations (update, in-place device append, delete) with
-the SQLite metadata and FTS5 store they keep in sync, and the ColBERT
+the SQLite metadata and FTS5 store they keep in sync, the ColBERT
 encoder (`nextplaid_tpu_torch.encoder`) that turns text into the token
-embeddings all of it indexes.
+embeddings all of it indexes, and the REST service over all of it
+(`nextplaid_tpu_torch.api`; its SDK and CLI in `nextplaid_tpu_torch.client`).
 
 The JAX package `nextplaid_tpu` stays beside it as the reference; this
 package imports neither it nor jax. Entry points take a `device` argument

@@ -11,4 +11,4 @@ from nextplaid_tpu_torch.ops.codec import (  # noqa: F401
     unpack_buckets,
 )
 from nextplaid_tpu_torch.ops.kmeans import KMeansConfig, compute_kmeans, lloyd  # noqa: F401
-from nextplaid_tpu_torch.ops.maxsim import maxsim_batch, maxsim_score  # noqa: F401
+from nextplaid_tpu_torch.ops.maxsim import maxsim_batch, maxsim_pairwise, maxsim_score  # noqa: F401

@@ -38,3 +38,25 @@ def maxsim_batch(
     per_token = sim.max(dim=-1).values  # [Q, B, Tq]
     keep = query_mask[:, None, :] & torch.isfinite(per_token)
     return torch.where(keep, per_token, torch.zeros_like(per_token)).sum(-1)
+
+
+def maxsim_pairwise(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    query_mask: torch.Tensor,
+    doc_mask: torch.Tensor,
+) -> torch.Tensor:
+    """Paired masked MaxSim: query i scored against doc slab i.
+
+    Args:
+      queries: [Q, Tq, d]; docs: [Q, R, Td, d] (per-query candidate slabs).
+      query_mask: [Q, Tq]; doc_mask: [Q, R, Td].
+
+    Returns:
+      [Q, R] float32; a doc with no real token scores 0.
+    """
+    sim = torch.einsum("qtd,qrjd->qrtj", queries.float(), docs.float())
+    sim = sim.masked_fill(~doc_mask[:, :, None, :], float("-inf"))
+    per_token = sim.max(dim=-1).values  # [Q, R, Tq]
+    keep = query_mask[:, None, :] & torch.isfinite(per_token)
+    return torch.where(keep, per_token, torch.zeros_like(per_token)).sum(-1)

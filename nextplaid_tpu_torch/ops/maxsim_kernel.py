@@ -43,7 +43,10 @@ m_t = max over valid j of float(<q_i8_t, grid_i8[n, j]>) * scales[n, j]
 for CPU tensors and launch their kernel for CUDA tensors; a failed build or
 launch raises. Each kernel's library is compiled with nvcc at first use into
 build/nextplaid_tpu_torch/ and loaded with ctypes; a library is rebuilt when
-its source, a header it includes or the flags change.
+its source, a header it includes or the flags change. Builds and loads are
+thread-safe: a server's first searches arrive on several executor threads at
+once, and one source is compiled once (`load_kernels` builds the two served
+kernels before a server takes requests).
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
@@ -113,29 +117,39 @@ def build_tag(source: Path) -> str:
     return h.hexdigest()[:12]
 
 
+# Guards the launch counts: a server launches from several executor threads.
+_COUNT_LOCK = threading.Lock()
+# One lock a source: threads asking for one library wait for one nvcc, while
+# build_all's threads still compile different sources at once.
+_BUILD_LOCKS: Dict[Path, threading.Lock] = {src: threading.Lock() for src in SOURCES}
+
+
 def build_library(source: Path = SOURCE) -> Path:
     """Compile one kernel source into a shared library (once per source,
     headers and flags; the build log beside it holds ptxas' register and
     shared memory report). Returns the library's path."""
     tag = build_tag(source)
     lib = BUILD_DIR / f"{source.stem}-{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed on {source.name} with exit code "
-            f"{proc.returncode}:\n{proc.stderr}"
+    with _BUILD_LOCKS.setdefault(source, threading.Lock()):
+        if lib.exists():
+            return lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # Another process may build the same library into this directory:
+        # each writer has its own temporary name, and the rename is atomic.
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            capture_output=True,
+            text=True,
         )
-    lib.with_suffix(".log").write_text(proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {source.name} with exit code "
+                f"{proc.returncode}:\n{proc.stderr}"
+            )
+        lib.with_suffix(".log").write_text(proc.stderr)
+        os.replace(tmp, lib)
+        return lib
 
 
 def build_all() -> Dict[str, Path]:
@@ -146,7 +160,23 @@ def build_all() -> Dict[str, Path]:
     return {src.stem: lib for src, lib in zip(SOURCES, libs)}
 
 
-@functools.lru_cache(maxsize=None)
+def load_once(loader):
+    """Memoize a library loader: concurrent first calls run it once."""
+    lock = threading.Lock()
+    loaded = []
+
+    @functools.wraps(loader)
+    def wrapper():
+        if not loaded:
+            with lock:
+                if not loaded:
+                    loaded.append(loader())
+        return loaded[0]
+
+    return wrapper
+
+
+@load_once
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(SOURCE)))
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -159,7 +189,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
+@load_once
 def _library_int8() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(SOURCE_INT8)))
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -170,6 +200,16 @@ def _library_int8() -> ctypes.CDLL:
     lib.maxsim_int8_error_string.argtypes = [i]
     lib.maxsim_int8_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def load_kernels() -> None:
+    """Build (one nvcc each, started together) and load the two served
+    kernels. A server on a card calls this before it takes requests, so
+    that no request waits for nvcc."""
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(build_library, (SOURCE, SOURCE_INT8)))
+    _library()
+    _library_int8()
 
 
 @dataclass(frozen=True)
@@ -375,7 +415,8 @@ def _launch(queries_flat, grid_tokens, doclens, tq) -> torch.Tensor:
     if err != 0:
         msg = lib.maxsim_bf16_error_string(err).decode()
         raise RuntimeError(f"maxsim_bf16 kernel launch failed: {msg} ({err})")
-    maxsim_grid_scores.launches += 1
+    with _COUNT_LOCK:
+        maxsim_grid_scores.launches += 1
     return out
 
 
@@ -502,7 +543,8 @@ def _launch_int8(queries_i8, qscales, grid_i8, scales, tq) -> torch.Tensor:
     if err != 0:
         msg = lib.maxsim_int8_error_string(err).decode()
         raise RuntimeError(f"maxsim_int8 kernel launch failed: {msg} ({err})")
-    maxsim_grid_scores_int8i.launches += 1
+    with _COUNT_LOCK:
+        maxsim_grid_scores_int8i.launches += 1
     return out
 
 

@@ -41,7 +41,6 @@ compiled with nvcc at first use, as `ops.maxsim_kernel` builds its own.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import numpy as np
@@ -56,6 +55,7 @@ from nextplaid_tpu_torch.ops.maxsim_kernel import (
     SOURCE_VARIANTS,
     LaunchPlan,
     build_library,
+    load_once,
     maxsim_grid_scores_reference,
     pad_bf16_inputs,
     plan_variant,
@@ -67,7 +67,7 @@ ROWS = (64, 128)  # grid rows a ring stage holds
 _DOTS = 2  # the kernel's mask code of the probe
 
 
-@functools.lru_cache(maxsize=None)
+@load_once
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(SOURCE_VARIANTS)))
     p, i = ctypes.c_void_p, ctypes.c_int

@@ -49,7 +49,10 @@ def test_import_leaves_jax_out():
         "nextplaid_tpu_torch.index.embeddings, nextplaid_tpu_torch.encoder, "
         "nextplaid_tpu_torch.encoder.hub, nextplaid_tpu_torch.storage, "
         "nextplaid_tpu_torch.storage.native, nextplaid_tpu_torch.storage.merge_cache, "
-        "nextplaid_tpu_torch.storage.convert\n"
+        "nextplaid_tpu_torch.storage.convert, nextplaid_tpu_torch.api, "
+        "nextplaid_tpu_torch.api.server, nextplaid_tpu_torch.api.encode_pool, "
+        "nextplaid_tpu_torch.client, nextplaid_tpu_torch.client.cli, "
+        "nextplaid_tpu_torch.eval, nextplaid_tpu_torch.scripts_export\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'nextplaid_tpu') or "
         "m.startswith(('jax.', 'flax.', 'nextplaid_tpu.'))]\n"
         "print(bad)\n"

@@ -11,6 +11,7 @@ tests run where JAX is not installed:
 
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -295,3 +296,97 @@ def test_maxsim_oracle_matches_jax(seed):
         one, float(jax_maxsim.maxsim_score(jnp.asarray(q[0]), jnp.asarray(docs[0]))),
         rtol=1e-5, atol=1e-5,
     )
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_maxsim_pairwise_matches_jax(seed):
+    """ops.maxsim.maxsim_pairwise against nextplaid_tpu.ops.maxsim's on
+    random masks, with a fully masked doc slab row and a fully masked query:
+    rtol 1e-5, atol 1e-5 (f32 sums in other orders)."""
+    import jax.numpy as jnp
+
+    from nextplaid_tpu.ops import maxsim as jax_maxsim
+    from nextplaid_tpu_torch.ops.maxsim import maxsim_pairwise
+
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((4, 6, 16)).astype(np.float32)
+    docs = rng.standard_normal((4, 5, 9, 16)).astype(np.float32)
+    qmask = rng.random((4, 6)) < 0.7
+    dmask = rng.random((4, 5, 9)) < 0.6
+    dmask[1, 3] = False  # a doc with no real token scores 0
+    qmask[2] = False  # a query with no real token scores 0 everywhere
+    args = (q, docs, qmask, dmask)
+    got = maxsim_pairwise(*map(torch.from_numpy, args)).numpy()
+    want = np.asarray(jax_maxsim.maxsim_pairwise(*map(jnp.asarray, args)))
+    assert got.shape == want.shape == (4, 5) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert got[1, 3] == 0 and (got[2] == 0).all()
+
+
+FAKE_NVCC = """#!{python}
+import sys, time
+out = sys.argv[sys.argv.index("-o") + 1]
+with open({calls!r}, "a") as f:
+    f.write(out + "\\n")
+time.sleep(0.5)
+with open(out, "w") as f:
+    f.write("library")
+print("ptxas info    : Used 1 registers", file=sys.stderr)
+"""
+
+
+def test_build_library_once_under_threads(tmp_path, monkeypatch):
+    """Threads that ask for one library at once wait for one nvcc (a server's
+    first searches arrive on several executor threads); different sources
+    still build side by side; no temporary file is left behind."""
+    import threading
+
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    calls = tmp_path / "calls.txt"
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable, calls=str(calls)))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setattr(maxsim_kernel, "BUILD_DIR", tmp_path / "build")
+    sources = [maxsim_kernel.SOURCE] * 4 + [maxsim_kernel.SOURCE_INT8] * 2
+    barrier = threading.Barrier(len(sources))
+    results, errors = [None] * len(sources), []
+
+    def build(i):
+        barrier.wait()
+        try:
+            results[i] = maxsim_kernel.build_library(sources[i])
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(i,)) for i in range(len(sources))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    lines = calls.read_text().split()
+    assert len(lines) == 2 and len(set(lines)) == 2  # one nvcc a source
+    assert time.perf_counter() - t0 < 0.95  # the two sources built at once
+    assert len({results[i] for i in range(4)}) == 1 and results[0].read_text() == "library"
+    assert results[4] == results[5] != results[0]
+    assert sorted(p.name for p in (tmp_path / "build").iterdir() if p.suffix == ".tmp") == []
+    # A loader behind `load_once` runs once, however many threads ask.
+    loads = []
+
+    @maxsim_kernel.load_once
+    def loader():
+        loads.append(1)
+        time.sleep(0.2)
+        return object()
+
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(loader())) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert len(loads) == 1 and len(got) == 4 and len({id(g) for g in got}) == 1
