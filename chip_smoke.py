@@ -67,6 +67,26 @@ port's paths:
      same request over HTTP); then the server as a subprocess
      (`python -m nextplaid_tpu_torch.api.server --device cuda`), which must
      answer and exit 0 within 10 s of SIGTERM.
+  9. the RQ (residual-quantized) codebook, after the service: the first
+     110,000 docs of the megascale corpus (~17.6M tokens, nbits 2), where
+     the K heuristic gives RQ_MIN_K = 65,536 = 256 x 256;
+     `create_index_streamed(centroid_structure="rq")` (train, assign and the
+     rest timed apart), `DeviceIndex.load`, staged search at the operating
+     points of phase 5 and "quality" with stages 1-2 over the factored
+     codebook and stage 4 through the bf16 kernel, against the flat control
+     (the same index with its rq_* fields None) and the f32 exhaustive
+     oracle.
+  10. code search (`cgrep`, this slice's path): `ProjectIndexer` over a copy
+     of this checkout's files with the encoder at GTE-ModernColBERT-v1's
+     widths (random weights from seed 0, a character-fallback WordPiece made
+     with `tokenizers`), an incremental update of one edited file,
+     `Searcher.search` for 50 queries from the tree's own names and
+     docstrings with and without path, glob and regex filters, the card's
+     hits against a CPU search of the same index and query embeddings, and
+     `python -m nextplaid_tpu_torch.codesearch.cli --device cuda --json`
+     over a model directory of the same weights.
+  Phases 9 and 10 run after phase 8 and before phases 4-5 (grid-only and
+  staged serving at megascale), whose build needs the most memory.
 The megascale path also loads its host arrays twice with the merge cache
 forced on (a native merge that stores the cache, then a hit), both held
 against numpy's concatenation; the native host library is built from
@@ -82,6 +102,7 @@ when CUDA is unavailable or any phase fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import filecmp
 import gc
 import json
@@ -2251,6 +2272,503 @@ def service_phase(device, mk, src_path, topics, queries, widths=GTE_WIDTHS):
         shutil.rmtree(src_path, ignore_errors=True)
 
 
+# RQ phase: the residual-quantized codebook at its own operating point,
+# K = RQ_MIN_K = 65,536 (C 256 x F 256), on the first 110,000 docs of the
+# megascale corpus's generator (~17.6M tokens): the K heuristic gives 65,536
+# there. Staged search at STAGED_POINTS and "quality" over the RQ index and
+# over the same index with its rq_* fields set to None (the flat control).
+# Recall is held to the flat control's, not to the megascale records: a
+# query's 32 tokens hit a doc's topics ~0.31 times on average (Poisson), so
+# among 110,000 docs ~2 share five of its topics and ~32 share four, and the
+# oracle's top-10 is mostly decided by noise among the latter; at 473,000
+# docs ~9 share five. So the flat pipeline's own recall@10 is far below
+# the records here, and what the phase measures is the gap between the RQ
+# stages 1-2 and the flat ones on the same index.
+RQ_DIR = os.path.join(ROOT, "build", "chip_smoke_rq")
+RQ_DOCS = 110_000
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name, totals, key, sync=False):
+    """Replace `owner.name` by a wrapper that adds each call's seconds (after
+    a device sync when `sync`) to `totals[key]`, and put it back after."""
+    fn = getattr(owner, name)
+    totals.setdefault(key, 0.0)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if sync:
+            torch.cuda.synchronize()
+        totals[key] += time.perf_counter() - t0
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+def staged_point_runs(index, batches, params, kernel, q_dev, m_dev):
+    """One operating point on one index: STAGED_PASSES passes of
+    MEGA_IN_FLIGHT batches in flight, then one batch stage by stage (median
+    of 3 runs, CUDA events). Returns (first batch's results, QPS list,
+    kernel launches, stage ms dict, shapes)."""
+    from nextplaid_tpu_torch.index import search_batch, search_batch_async
+    from nextplaid_tpu_torch.index import search as S
+
+    search_batch(index, batches[0], params)  # warm-up
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    pass_s, out, pending = [], None, None
+    for _ in range(STAGED_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = [search_batch_async(index, batches[i % len(batches)], params)
+                   for i in range(MEGA_IN_FLIGHT)]
+        out = [p.result() for p in pending]
+        pass_s.append(time.perf_counter() - t0)
+    launches = kernel.launches
+    shapes = pending[0].shapes
+    if shapes is None or not shapes.rerank_kernel:
+        raise AssertionError("staged search did not take the stage-4 kernel route")
+    runs = []
+    for _ in range(3):
+        marks = []
+        S.search_pipeline(index, q_dev, m_dev, None, shapes, marks=marks)
+        torch.cuda.synchronize()
+        runs.append({b[0]: a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])})
+    stage = {name: statistics.median(r[name] for r in runs) for name in runs[0]}
+    qps = [MEGA_IN_FLIGHT * MEGA_BATCH / s for s in pass_s]
+    return out[0], qps, launches, stage, shapes
+
+
+def rq_phase(device, mk, n_docs=RQ_DOCS):
+    """The RQ codebook on the card: `create_index_streamed(centroid_structure
+    ="rq")` at K = RQ_MIN_K (train, assign and the rest timed apart), load,
+    and staged search at STAGED_POINTS and "quality" with stages 1-2 over the
+    factored codebook and stage 4 through the bf16 kernel, against the flat
+    control (the same index, stages 1-2 over its materialized table) and the
+    f32 exhaustive oracle. Without the [Q, Tq, K] score table the RQ path
+    ranks approx_score="codes" by the cell weights (as the JAX package
+    does), so at a "codes" point the gate's control runs the flat index at
+    "cells" with the same keep; the flat control at the point's own
+    parameters is printed beside it. Returns the bf16 kernel's RQ numbers."""
+    from nextplaid_tpu_torch.index import (
+        DeviceIndex, IndexConfig, SearchParameters, create_index_streamed, search_batch,
+    )
+    from nextplaid_tpu_torch.index import build as build_mod
+    from nextplaid_tpu_torch.index import search as S
+    from nextplaid_tpu_torch.index.config import resolve_target_recall
+    from nextplaid_tpu_torch.ops import kmeans as kmeans_ops
+    from nextplaid_tpu_torch.ops import rq as rq_ops
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RQ_DIR, ignore_errors=True)
+    path = os.path.join(RQ_DIR, "rq")
+    try:
+        chunks, sample, lens, topics = mega_corpus(device, n_docs)
+        total = int(lens.sum())
+        k = kmeans_ops.num_partitions_heuristic(float(total))
+        if k != rq_ops.RQ_MIN_K:
+            raise AssertionError(f"K heuristic gives {k} at {total} tokens, not RQ_MIN_K")
+        split = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timed_calls(rq_ops, "train_rq", split, "train", sync=True), \
+                timed_calls(build_mod, "assign_with_artifacts", split, "assign", sync=True):
+            meta = create_index_streamed(
+                chunks, path, IndexConfig(nbits=2, seed=42, centroid_structure="rq"),
+                sample_tokens=sample, est_total_tokens=total,
+            )
+        build_s = time.perf_counter() - t0
+        del sample
+        gc.collect()
+        torch.cuda.empty_cache()
+        c, f = (np.load(os.path.join(path, n), mmap_mode="r").shape[0]
+                for n in ("rq_coarse.npy", "rq_fine.npy"))
+        if (meta.num_partitions, (c, f)) != (rq_ops.RQ_MIN_K, rq_ops.rq_split(rq_ops.RQ_MIN_K)):
+            raise AssertionError(f"RQ build has K {meta.num_partitions} = {c} x {f}")
+        print(f"rq build: {meta.num_documents} docs, {meta.num_embeddings} tokens, K "
+              f"{meta.num_partitions} = C {c} x F {f}, nbits 2; create_index_streamed "
+              f"{build_s:.2f} s: train_rq {split['train']:.2f} s, assign_codes_rq "
+              f"{split['assign']:.2f} s, the rest (residual quantization, chunk files, IVF) "
+              f"{build_s - split['train'] - split['assign']:.2f} s", flush=True)
+
+        t0 = time.perf_counter()
+        full = DeviceIndex.load(path)
+        load_s = time.perf_counter() - t0
+        if full.rq_coarse is None or tuple(full.rq_inv_norms.shape) != (c, f):
+            raise AssertionError("DeviceIndex.load did not carry the RQ codebook")
+        degenerate = int((full.rq_inv_norms == 0).sum())
+        flat = dataclasses.replace(full, rq_coarse=None, rq_fine=None, rq_inv_norms=None)
+        queries = mega_queries(topics)
+        batches = [queries[s : s + MEGA_BATCH] for s in range(0, len(queries), MEGA_BATCH)]
+        t0 = time.perf_counter()
+        oracle = search_batch(full, batches[0], SearchParameters(
+            top_k=10, mode="exact", stage1_precision="highest"))
+        oracle_s = time.perf_counter() - t0
+        print(f"rq load: {load_s:.2f} s, {degenerate} degenerate pairs of {c * f}; f32 "
+              f"exhaustive oracle on {MEGA_BATCH} queries {oracle_s:.2f} s", flush=True)
+
+        kernel = mk.maxsim_grid_scores
+        q_arr, q_mask = S._pad_queries(batches[0], full.dim)
+        q_dev = torch.from_numpy(q_arr).to(device)
+        m_dev = torch.from_numpy(q_mask).to(device)
+        points = [(label, SearchParameters(**STAGED_COMMON, **kw))
+                  for label, kw, _ in STAGED_POINTS]
+        points.append(('preset "quality"', SearchParameters.preset("quality", **STAGED_COMMON)))
+        rq_launches = flat_launches = 0
+        for label, params in points:
+            resolved = resolve_target_recall(params)
+            got, qps, launches, stage, shapes = staged_point_runs(
+                full, batches, params, kernel, q_dev, m_dev)
+            ctl, ctl_qps, ctl_launches, ctl_stage, _ = staged_point_runs(
+                flat, batches, params, kernel, q_dev, m_dev)
+            gate = ctl_recall = recall_at_10(ctl, oracle)
+            gate_note = ""
+            if resolved.approx_score == "codes":
+                cells = dataclasses.replace(resolved, approx_score="cells",
+                                            prune_keep=shapes.prune_keep)
+                gate = recall_at_10(search_batch(flat, batches[0], cells), oracle)
+                gate_note = f" (flat at cells keep {shapes.prune_keep}: {gate:.4f})"
+            want = STAGED_PASSES * MEGA_IN_FLIGHT
+            if launches != want or ctl_launches != want:
+                raise AssertionError(f"rq [{label}] launched the bf16 kernel {launches} (RQ) / "
+                                     f"{ctl_launches} (flat) times in {want} batches")
+            rq_launches += launches
+            flat_launches += ctl_launches
+            check_results(got, MEGA_BATCH)
+            recall = recall_at_10(got, oracle)
+            rest = sum(v for n, v in stage.items() if n != "stage12")
+            ctl_rest = sum(v for n, v in ctl_stage.items() if n != "stage12")
+            print(f"rq staged [{label}]: {resolved.approx_score} nprobe {shapes.nprobe} keep "
+                  f"{shapes.prune_keep}, cmax {shapes.max_candidates}; stages 1-2 "
+                  f"{stage['stage12']:.3f} ms RQ vs {ctl_stage['stage12']:.3f} ms flat; stages "
+                  f"3-5 {rest:.3f} ms RQ vs {ctl_rest:.3f} ms flat (stage-4 kernel "
+                  f"{stage['stage4_kernel']:.3f} ms); p50 {statistics.median(qps):.2f} QPS RQ vs "
+                  f"{statistics.median(ctl_qps):.2f} flat; recall@10 {recall:.4f} RQ vs "
+                  f"{ctl_recall:.4f} flat{gate_note}; kernel launches {launches} RQ + "
+                  f"{ctl_launches} flat", flush=True)
+            floor = gate - RECALL_SLACK
+            if recall < floor:
+                raise AssertionError(f"rq [{label}] recall@10 {recall} < {floor}")
+
+        # The kernel alone at the RQ path's stage-4 shape (the largest union
+        # grid), beside its plain version and its bound.
+        label, kw, _ = STAGED_POINTS[1]
+        params = SearchParameters(**STAGED_COMMON, **kw)
+        shapes = S.PipelineShapes.derive(full, params, MEGA_BATCH, q_arr.shape[1])
+        cells, weights = S._dedup_cells(*S._select_cells_rq(q_dev, m_dev, full, shapes),
+                                        full.num_centroids, threshold=shapes.threshold)
+        union_ids, _, _ = S._prune_candidates(full, cells, weights, shapes, qmask=m_dev,
+                                              queries=q_dev)
+        grid, doclens = S._build_union_grid(full, union_ids, shapes)
+        tq = q_arr.shape[1]
+        args = (q_dev.reshape(-1, full.dim).to(torch.bfloat16), grid, doclens, tq)
+        max_err = check_kernel(kernel, mk.maxsim_grid_scores_reference, args,
+                               f"rq stage-4 union grid {tuple(grid.shape)}, {MEGA_BATCH}q")
+        kernel_ms = time_ms(lambda: kernel(*args), reps=5)
+        plain_ms = time_ms(lambda: mk.maxsim_grid_scores_reference(*args), reps=1)
+        bound_ms, bound_by, _ = maxsim_bound(*args)
+        print(f"rq stage-4 kernel [{label}]: union {int((union_ids < full.num_documents).sum())} "
+              f"docs, {int(doclens.sum())} valid tokens; kernel {kernel_ms:.3f} ms, bound "
+              f"{bound_ms:.3f} ms ({bound_by}; {100 * bound_ms / kernel_ms:.1f}% of it), plain "
+              f"version {plain_ms:.3f} ms; launches {rq_launches} on the RQ index, "
+              f"{flat_launches} on the flat control; the phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        del full, flat, grid, doclens
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"rq_launches": rq_launches, "rq_max_abs_err": max_err, "rq_ms": kernel_ms,
+                "rq_plain_ms": plain_ms, "rq_bound_ms": bound_ms, "rq_bound_by": bound_by}
+    finally:
+        shutil.rmtree(RQ_DIR, ignore_errors=True)
+
+
+# Code-search phase: the `cgrep` path over this checkout's own files, with the
+# encoder at GTE-ModernColBERT-v1's widths (random weights from seed 0) and a
+# character-fallback WordPiece tokenizer made in the process, as
+# tests/test_codesearch.py's fixture makes it.
+CS_DIR = os.path.join(ROOT, "build", "chip_smoke_codesearch")
+CS_QUERIES = 50
+# The filtered searches' keyword leg (FTS over a subset) takes 0.2-0.8 s a
+# query on the host, and a CPU search of the index ~1.7 s: fewer queries.
+CS_FILTER_QUERIES = 12
+CS_CPU_QUERIES = 6
+CS_OPTIONS = (
+    ("no filter", {}),
+    ("path", dict(path_prefix="nextplaid_tpu_torch")),
+    ("glob", dict(include_globs=["*.py"])),
+    ("regex", dict(regex=r"def \w+\(")),
+)
+CS_EDITED = os.path.join("nextplaid_tpu_torch", "index", "search.py")
+CS_RTOL = 1e-4
+
+
+def char_wordpiece():
+    """A character-fallback WordPiece over lowercase letters, digits and _
+    with the ColBERT specials (any code token is encodable)."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordPiece
+    from tokenizers.normalizers import Lowercase
+    from tokenizers.pre_tokenizers import Whitespace
+    from tokenizers.processors import TemplateProcessing
+
+    vocab = {"[PAD]": 0, "[CLS]": 1, "[SEP]": 2, "[MASK]": 3, "[UNK]": 4, "[Q]": 5, "[D]": 6}
+    for ch in "abcdefghijklmnopqrstuvwxyz0123456789_":
+        vocab[ch] = len(vocab)
+        vocab[f"##{ch}"] = len(vocab)
+    tok = Tokenizer(WordPiece(vocab, unk_token="[UNK]", max_input_chars_per_word=200))
+    tok.pre_tokenizer = Whitespace()
+    tok.post_processor = TemplateProcessing(single="[CLS] $A [SEP]",
+                                            special_tokens=[("[CLS]", 1), ("[SEP]", 2)])
+    tok.normalizer = Lowercase()
+    return tok, vocab
+
+
+def write_model_dir(path, params, widths, tok, ccfg):
+    """A model directory the port's `Colbert(model_dir)` loads: config.json,
+    model.safetensors under ModernBERT's HF names, the projection in
+    1_Dense/, tokenizer.json and colbert_config.json."""
+    from safetensors.numpy import save_file
+
+    os.makedirs(os.path.join(path, "1_Dense"), exist_ok=True)
+
+    def w(name):
+        return np.ascontiguousarray(params[f"backbone.{name}"].numpy())
+
+    def t(name):  # a dense kernel [in, out] as HF's weight [out, in]
+        return np.ascontiguousarray(w(name).T)
+
+    sd = {"embeddings.tok_embeddings.weight": w("word_embeddings.embedding"),
+          "embeddings.norm.weight": w("emb_norm.scale"),
+          "final_norm.weight": w("final_norm.scale")}
+    for i in range(widths["num_hidden_layers"]):
+        sd[f"layers.{i}.attn.Wqkv.weight"] = t(f"layer_{i}.attn.Wqkv.kernel")
+        sd[f"layers.{i}.attn.Wo.weight"] = t(f"layer_{i}.attn.Wo.kernel")
+        sd[f"layers.{i}.mlp_norm.weight"] = w(f"layer_{i}.mlp_norm.scale")
+        sd[f"layers.{i}.mlp.Wi.weight"] = t(f"layer_{i}.Wi.kernel")
+        sd[f"layers.{i}.mlp.Wo.weight"] = t(f"layer_{i}.Wo.kernel")
+        if i:
+            sd[f"layers.{i}.attn_norm.weight"] = w(f"layer_{i}.attn_norm.scale")
+    save_file(sd, os.path.join(path, "model.safetensors"))
+    save_file({"linear.weight": np.ascontiguousarray(params["projection.kernel"].numpy().T)},
+              os.path.join(path, "1_Dense", "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(widths, fh)
+    tok.save(os.path.join(path, "tokenizer.json"))
+    ccfg.save(os.path.join(path, "colbert_config.json"))
+
+
+def copy_checkout(dst):
+    """This checkout's files (`git ls-files`, or, where there is no .git, a
+    walk that skips what the indexer skips), build/ left out. Returns the
+    relative paths copied."""
+    try:
+        rels = subprocess.run(["git", "ls-files"], cwd=ROOT, capture_output=True, text=True,
+                              check=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        from nextplaid_tpu_torch.codesearch.indexer import SKIP_DIRS
+
+        rels = []
+        for root, dirs, files in os.walk(ROOT):
+            dirs[:] = [d for d in dirs if d not in SKIP_DIRS and not d.startswith(".")]
+            rels.extend(os.path.relpath(os.path.join(root, n), ROOT) for n in files)
+    rels = sorted(r for r in rels if not r.startswith("build/")
+                  and os.path.isfile(os.path.join(ROOT, r)))
+    for rel in rels:
+        os.makedirs(os.path.dirname(os.path.join(dst, rel)), exist_ok=True)
+        shutil.copy2(os.path.join(ROOT, rel), os.path.join(dst, rel))
+    return rels
+
+
+def same_hits(got, want, tol, label):
+    """Hit lists equal in (file, name, line) and score, except that hits
+    tied with the last one's score (within `tol`) may trade places."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} hits vs {len(want)}")
+    if not np.allclose([h.score for h in got], [h.score for h in want], rtol=tol, atol=tol):
+        raise AssertionError(f"{label}: scores differ beyond {tol}")
+    key = [(h.file, h.name, h.line) for h in got]
+    ref = [(h.file, h.name, h.line) for h in want]
+    if key != ref:
+        last = want[-1].score if want else 0.0
+        for k, h in zip(key, got):
+            if k not in ref and abs(h.score - last) > tol * (1 + abs(last)):
+                raise AssertionError(f"{label}: hit {k} (score {h.score}) in one list only")
+
+
+def codesearch_phase(device, mk, widths=GTE_WIDTHS, n_queries=CS_QUERIES):
+    """Code search on the card: `ProjectIndexer(device="cuda").update()` over
+    a copy of this checkout (parse, encode and ingest timed apart), an
+    incremental update after one file is edited, `Searcher.search` for
+    queries taken from the tree's own function names and docstrings, with
+    and without path, glob and regex filters (split by leg), the card's hits
+    against a CPU `search_batch` of the same index and query embeddings, and
+    the `cgrep` CLI as a subprocess over a model directory of the same
+    weights. No MaxSim kernel is on this path: the index is unpinned and far
+    below `exact_max_embeddings`, so `search_batch` takes the exhaustive
+    scan, as in the JAX package; the phase checks that neither kernel ran."""
+    from nextplaid_tpu_torch import filtering
+    from nextplaid_tpu_torch.codesearch import ProjectIndexer, Searcher, SearchOptions
+    from nextplaid_tpu_torch.codesearch import indexer as indexer_mod
+    from nextplaid_tpu_torch.encoder import (
+        BackboneConfig, Colbert, ColbertConfig, init_random_params, load_params,
+    )
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CS_DIR, ignore_errors=True)
+    proj, idx, model_dir = (os.path.join(CS_DIR, n) for n in ("project", "index", "model"))
+    try:
+        rels = copy_checkout(proj)
+        tok, vocab = char_wordpiece()
+        cfg = BackboneConfig(**widths)
+        ccfg = ColbertConfig(query_prefix="[Q]", document_prefix="[D]", query_length=32,
+                             document_length=300, embedding_dim=widths["projection_dim"],
+                             mask_token_id=vocab["[MASK]"], pad_token_id=vocab["[PAD]"],
+                             uses_token_type_ids=False)
+        params = init_random_params(cfg, seed=0)
+        write_model_dir(model_dir, params, widths, tok, ccfg)
+        loaded = load_params(model_dir, BackboneConfig.from_model_dir(model_dir))
+        if loaded.keys() != params.keys() or not all(torch.equal(loaded[n], params[n])
+                                                      for n in params):
+            raise AssertionError("the model directory does not load back its weights")
+        # The CLI's batch sizes: 16 texts a forward, 32 a call of the indexer.
+        enc = Colbert(config=ccfg, backbone_config=cfg, tokenizer=tok, params=params,
+                      batch_size=16, device=device)
+        del loaded
+        mk.maxsim_grid_scores.launches = mk.maxsim_grid_scores_int8i.launches = 0
+
+        split, n_tok = {}, [0]
+        encode = enc.encode_documents
+
+        def counted(texts, *a, **kw):
+            out = encode(texts, *a, **kw)
+            n_tok[0] += sum(e.shape[0] for e in out)
+            return out
+
+        enc.encode_documents = counted
+        indexer = ProjectIndexer(proj, enc, index_dir=idx, device=device)
+        t0 = time.perf_counter()
+        with timed_calls(indexer_mod, "extract_units", split, "parse"), \
+                timed_calls(enc, "encode_documents", split, "encode"), \
+                timed_calls(indexer_mod, "update_or_create_with_metadata", split, "ingest"):
+            stats = indexer.update()
+        index_s = time.perf_counter() - t0
+        enc.encode_documents = encode
+        rows = filtering.get(idx)
+        langs = {}
+        for r in rows:
+            langs[r["language"]] = langs.get(r["language"], 0) + 1
+        if stats["units"] != len(rows) or not rows:
+            raise AssertionError(f"indexed {stats['units']} units, the metadata holds {len(rows)}")
+        print(f"codesearch index: {len(rels)} files copied, {stats['scanned']} scanned, "
+              f"{stats['units']} units ({', '.join(f'{v} {k}' for k, v in sorted(langs.items(), key=lambda kv: -kv[1])[:6])}), "
+              f"{n_tok[0]} tokens; update() {index_s:.2f} s: parse {split['parse']:.2f} s, "
+              f"encode {split['encode']:.2f} s, ingest {split['ingest']:.2f} s, the rest "
+              f"{index_s - split['parse'] - split['encode'] - split['ingest']:.2f} s; "
+              f"{stats['units'] / index_s:.1f} units/s", flush=True)
+
+        # Incremental update: one edited file's units replaced, the others'
+        # doc ids re-derived from the metadata table.
+        edited = os.path.join(proj, CS_EDITED)
+        with open(edited, "a") as fh:
+            fh.write('\n\ndef chip_smoke_marker(x):\n    """Added by the incremental update."""\n'
+                     "    return x\n")
+        t0 = time.perf_counter()
+        stats2 = indexer.update()
+        upd_ms = 1e3 * (time.perf_counter() - t0)
+        rows2 = filtering.get(idx)
+        by_file = {}
+        for r in rows2:
+            by_file.setdefault(r["file"], []).append(int(r["_subset_"]))
+        if (stats2["changed"], stats2["deleted"]) != (1, 0) or len(rows2) != len(rows) + 1:
+            raise AssertionError(f"incremental update: {stats2}, {len(rows2)} rows after "
+                                 f"{len(rows)}")
+        if any(info["doc_ids"] != by_file.get(rel, []) for rel, info in
+               indexer.state["files"].items()):
+            raise AssertionError("incremental update: state doc ids differ from the metadata")
+        if not any(r["name"] == "chip_smoke_marker" for r in rows2):
+            raise AssertionError("incremental update: the new unit is not in the metadata")
+        print(f"codesearch update: 1 file edited, {stats2['units']} units re-indexed in "
+              f"{upd_ms:.1f} ms; {len(rows2)} units, every file's doc ids = the metadata's",
+              flush=True)
+
+        # Queries from the tree's own function names and docstrings.
+        rng = np.random.default_rng(0)
+        pool = [r for r in rows2 if r["unit_type"] in ("function", "method") and r["docstring"]]
+        picks = rng.choice(len(pool), size=min(n_queries, len(pool)), replace=False)
+        queries = [f"{pool[i]['name'].replace('_', ' ')} "
+                   f"{' '.join(pool[i]['docstring'].split()[:8])}" for i in sorted(picks)]
+        searcher = Searcher(idx, enc, device=device)
+        searcher.search(queries[0])  # warm-up (loads the index)
+        for label, opts in CS_OPTIONS:
+            lat, legs = [], {}
+            for q in queries if not opts else queries[:CS_FILTER_QUERIES]:
+                stages = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                found = searcher.search(q, SearchOptions(**opts), stages=stages)
+                lat.append(1e3 * (time.perf_counter() - t0))
+                if not found:
+                    raise AssertionError(f"codesearch [{label}]: {q!r} found nothing")
+                for n, s in stages.items():
+                    legs.setdefault(n, []).append(1e3 * s)
+            print(f"codesearch search [{label}]: {len(lat)} queries, p50 "
+                  f"{statistics.median(lat):.2f} ms, p95 {np.percentile(lat, 95):.2f} ms; "
+                  f"median ms by leg: "
+                  f"{', '.join(f'{n} {statistics.median(v):.2f}' for n, v in legs.items())}",
+                  flush=True)
+        if mk.maxsim_grid_scores.launches or mk.maxsim_grid_scores_int8i.launches:
+            raise AssertionError("code search launched a MaxSim kernel on an unpinned index")
+
+        # The card's hits against a CPU search_batch of the same index and
+        # the same query embeddings.
+        class FixedQueries:
+            def __init__(self, embs):
+                self.embs = dict(zip(queries[:CS_CPU_QUERIES], embs))
+
+            def encode_queries(self, qs):
+                return [self.embs[q] for q in qs]
+
+        fixed = FixedQueries(enc.encode_queries(queries[:CS_CPU_QUERIES]))
+        card_searcher = Searcher(idx, fixed, device=device)
+        cpu_searcher = Searcher(idx, fixed, device="cpu")
+        t0 = time.perf_counter()
+        for i, q in enumerate(queries[:CS_CPU_QUERIES]):
+            same_hits(card_searcher.search(q), cpu_searcher.search(q), CS_RTOL,
+                      f"codesearch card vs CPU, query {i}")
+        print(f"codesearch: the card's hits = a CPU search_batch's on the same index and query "
+              f"embeddings for {CS_CPU_QUERIES} queries (file, name, line; scores within "
+              f"{CS_RTOL}; {time.perf_counter() - t0:.1f} s on the CPU)", flush=True)
+
+        # The CLI as a subprocess, over the model directory.
+        env = dict(os.environ, CGREP_CONFIG_DIR=os.path.join(CS_DIR, "cfg"))
+        cmd = [sys.executable, "-m", "nextplaid_tpu_torch.codesearch.cli", "--device", device.type,
+               "--path", proj, "--index-dir", idx, "--model", model_dir, "--no-update",
+               "--json", "-k", "10", "--", queries[1]]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=600)
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"cgrep exited {out.returncode}: {out.stderr[-2000:]}")
+        got = json.loads(out.stdout)
+        want = searcher.search(queries[1], SearchOptions(top_k=10))
+        if [(h["file"], h["name"], h["line"]) for h in got] != [
+                (h.file, h.name, h.line) for h in want] or not np.allclose(
+                [h["score"] for h in got], [round(h.score, 4) for h in want], atol=CS_RTOL):
+            raise AssertionError(f"cgrep's hits differ from the in-process search: {got[:3]}")
+        print(f"codesearch cli: python -m nextplaid_tpu_torch.codesearch.cli --device {device.type} "
+              f"--json over the model directory: {len(got)} hits = the in-process search's, "
+              f"{cli_s:.2f} s wall; the phase {time.perf_counter() - t_phase:.1f} s; MaxSim "
+              f"kernel launches 0 (exhaustive scan)", flush=True)
+    finally:
+        shutil.rmtree(CS_DIR, ignore_errors=True)
+
+
 def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms, bound_ms, bound_by):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -2322,27 +2840,33 @@ def main() -> int:
     # encoder, a resumed streamed build, load, and search through the bf16
     # kernel.
     encoder = encoder_phase(device, mk)
-    # Phase 8: this slice's path, the REST service on the SciFact index with
+    # Phase 8: the eighth slice's path, the REST service on the SciFact index with
     # the encoder, over HTTP through the SDK.
     service = service_phase(device, mk, SERVICE_SRC, topics, queries)
-    # Phases 9-10: grid-only int8 serving at scale (with the native merge and
+    # Phases 9-10: the ninth slice's paths, the RQ codebook at its own
+    # operating point, then code search over this checkout.
+    rq = rq_phase(device, mk)
+    codesearch_phase(device, mk)
+    # Phases 11-12: grid-only int8 serving at scale (with the native merge and
     # the merge cache on its host load), then the third slice's main path:
     # staged search over the same corpus's full index.
     int8, staged = grid_only_phase(device, mk)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # Phase 11: the kernels line, then the device line. The bf16 kernel's
+    # Phase 13: the kernels line, then the device line. The bf16 kernel's
     # launches are the SciFact path's, the staged path's, the mutation
-    # phase's, the encoder phase's and the service phase's; its ms, bound
+    # phase's, the encoder phase's, the service phase's and the RQ phase's;
+    # its ms, bound
     # and plain ms are the SciFact pass's, the staged_* keys the stage-4
     # shape's. The int8 kernel's are the grid-only path's, the mutation
     # phase's and the service phase's.
     bf16_entry = kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:])
     bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged, **mutation["bf16"],
-                      **encoder, **service["bf16"])
+                      **encoder, **service["bf16"], **rq)
     bf16_entry["launches"] += (staged["staged_launches"] + mutation["bf16"]["mutation_launches"]
-                               + encoder["encoder_launches"] + service["bf16"]["service_launches"])
+                               + encoder["encoder_launches"] + service["bf16"]["service_launches"]
+                               + rq["rq_launches"])
     int8_entry = kernel_entry("maxsim_grid_scores_int8i", "nextplaid_tpu_torch/csrc/maxsim_int8.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:150", *int8)
     int8_entry.update(grid_only_launches=int8_entry["launches"], **mutation["int8"],

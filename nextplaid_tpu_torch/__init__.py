@@ -7,8 +7,11 @@ hand-written CUDA MaxSim kernels for Hopper (sm_90a), the staged PLAID
 pipeline, index mutations (update, in-place device append, delete) with
 the SQLite metadata and FTS5 store they keep in sync, the ColBERT
 encoder (`nextplaid_tpu_torch.encoder`) that turns text into the token
-embeddings all of it indexes, and the REST service over all of it
-(`nextplaid_tpu_torch.api`; its SDK and CLI in `nextplaid_tpu_torch.client`).
+embeddings all of it indexes, the REST service over all of it
+(`nextplaid_tpu_torch.api`; its SDK and CLI in `nextplaid_tpu_torch.client`),
+the residual-quantized centroid structure for huge K
+(`nextplaid_tpu_torch.ops.rq`) and code search over a project tree
+(`nextplaid_tpu_torch.codesearch`, the `cgrep` CLI).
 
 The JAX package `nextplaid_tpu` stays beside it as the reference; this
 package imports neither it nor jax. Entry points take a `device` argument

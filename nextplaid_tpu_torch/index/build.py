@@ -5,8 +5,9 @@ src/index.rs:182-971): centroid training (ops.kmeans), code assignment and
 residual quantization (ops.codec) run on the device; the host orchestrates
 chunking and writes the reference-compatible NPY + JSON directory.
 
-Only the flat centroid structure is ported, and the IVF is always built on
-the host (`build_ivf`).
+`centroid_structure="rq"` trains the factored codebook of `ops.rq` and
+assigns through it; "auto" and "flat" train flat k-means, as in the JAX
+package. The IVF is always built on the host (`build_ivf`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from nextplaid_tpu_torch.index.config import IndexConfig, Metadata
 from nextplaid_tpu_torch.ops import codec as codec_ops
 from nextplaid_tpu_torch.ops import kmeans as kmeans_ops
+from nextplaid_tpu_torch.ops import rq as rq_ops
 from nextplaid_tpu_torch.storage.npy import (
     IndexLayout,
     atomic_write_json,
@@ -43,7 +45,8 @@ QUANTIZE_TILE = 262_144
 @dataclass
 class CodecArtifacts:
     """Trained codec parameters (next-plaid `PreparedCodecArtifacts`,
-    src/index.rs:174-180)."""
+    src/index.rs:174-180). `rq` carries the factored codebook of an index
+    with the RQ centroid structure: assignment then goes through it."""
 
     centroids: np.ndarray  # [K, d] f32, L2-normalized
     bucket_cutoffs: np.ndarray  # [2^nbits - 1]
@@ -51,21 +54,22 @@ class CodecArtifacts:
     avg_residual: np.ndarray  # [d] mean |residual| per dim
     cluster_threshold: float  # 0.75-quantile of heldout residual norms
     nbits: int
-
-
-def _check_structure(config: IndexConfig) -> None:
-    if config.centroid_structure not in ("auto", "flat"):
-        raise NotImplementedError(
-            f"centroid_structure={config.centroid_structure!r}: only the "
-            "flat structure is ported (the RQ codebook is a later item of "
-            "ROADMAP.md)"
-        )
+    rq: Optional[rq_ops.RQCodebook] = None
 
 
 def assign_with_artifacts(
     emb_device: torch.Tensor, artifacts: CodecArtifacts
 ) -> torch.Tensor:
-    """Nearest-centroid codes [n] int32 for tokens staged on a device."""
+    """Nearest-centroid codes [n] int32 for tokens staged on a device,
+    through the factored codebook when the artifacts carry one."""
+    if artifacts.rq is not None:
+        def dev(x):  # a copy: the factors may be read-only memory maps
+            return torch.tensor(x, dtype=torch.float32, device=emb_device.device)
+
+        book = artifacts.rq
+        return rq_ops.assign_codes_rq(
+            emb_device, dev(book.coarse), dev(book.fine), dev(book.inv_norms())
+        )
     cents = torch.as_tensor(
         artifacts.centroids, dtype=torch.float32, device=emb_device.device
     )
@@ -79,6 +83,7 @@ def prepare_codec_artifacts(
     centroids: np.ndarray,
     config: IndexConfig,
     device: torch.device,
+    rq: Optional[rq_ops.RQCodebook] = None,
 ) -> CodecArtifacts:
     """Train bucket cutoffs/weights on a held-out sample.
 
@@ -124,6 +129,7 @@ def prepare_codec_artifacts(
         avg_residual=np.zeros(dim, np.float32),
         cluster_threshold=0.0,
         nbits=config.nbits,
+        rq=rq,
     )
     return _finish_codec_artifacts(
         artifacts, torch.from_numpy(heldout).to(device), config
@@ -241,10 +247,15 @@ def build_ivf(
 
 def _write_codec(layout: IndexLayout, artifacts: CodecArtifacts) -> None:
     atomic_write_npy(layout.centroids, artifacts.centroids)
-    # A rewrite with flat centroids must not leave stale RQ sidecars of an
-    # index the JAX package built behind.
-    layout.rq_coarse.unlink(missing_ok=True)
-    layout.rq_fine.unlink(missing_ok=True)
+    if artifacts.rq is not None:
+        atomic_write_npy(layout.rq_coarse, artifacts.rq.coarse)
+        atomic_write_npy(layout.rq_fine, artifacts.rq.fine)
+    else:
+        # A rewrite with flat centroids (a start-from-scratch rebuild of a
+        # formerly-RQ index) must not leave stale sidecars behind: factors
+        # that disagree with the codes make documents unfindable.
+        layout.rq_coarse.unlink(missing_ok=True)
+        layout.rq_fine.unlink(missing_ok=True)
     atomic_write_npy(layout.bucket_cutoffs, artifacts.bucket_cutoffs)
     atomic_write_npy(layout.bucket_weights, artifacts.bucket_weights)
     atomic_write_npy(layout.avg_residual, artifacts.avg_residual)
@@ -368,7 +379,6 @@ def create_index(
     codec training -> chunked encode -> write. Runs on `device` ("cuda"
     when None)."""
     config = config or IndexConfig()
-    _check_structure(config)
     device = resolve_device(device)
     docs = [np.asarray(d, np.float32) for d in documents_embeddings]
     if not docs:
@@ -384,6 +394,7 @@ def create_index(
         doc_bounds = np.zeros(len(docs) + 1, np.int64)
         np.cumsum([d.shape[0] for d in docs], out=doc_bounds[1:])
 
+        rq_book = None
         if centroids is None:
             _progress("kmeans")
             kcfg = kmeans_ops.KMeansConfig(
@@ -392,11 +403,20 @@ def create_index(
                 n_samples_kmeans=config.n_samples_kmeans,
                 seed=config.seed if config.seed is not None else 42,
             )
-            centroids = kmeans_ops.compute_kmeans(
-                docs, kcfg, flat_device=dev_flat, device=device
-            )
+            # "auto" is flat at every K, as in the JAX package.
+            if config.centroid_structure == "rq":
+                rq_book = rq_ops.compute_rq_kmeans(
+                    docs, kcfg, flat_device=dev_flat, device=device
+                )
+                centroids = rq_book.flat_centroids()
+            else:
+                centroids = kmeans_ops.compute_kmeans(
+                    docs, kcfg, flat_device=dev_flat, device=device
+                )
         _progress("codec")
-        artifacts = prepare_codec_artifacts(docs, centroids, config, device)
+        artifacts = prepare_codec_artifacts(
+            docs, centroids, config, device, rq=rq_book
+        )
 
         chunks: List[EncodedChunk] = []
         for start in range(0, len(docs), config.batch_size):
@@ -436,24 +456,41 @@ def _train_streamed_artifacts(
     sample_tokens: torch.Tensor, est_total_tokens: int, config: IndexConfig
 ) -> CodecArtifacts:
     """Centroid + codec training for the streamed build: K from the token
-    heuristic, flat k-means on the device, quantile buckets on a held-out
-    slice of at most 50K tokens."""
+    heuristic, flat k-means or the RQ codebook on the device, quantile
+    buckets on a held-out slice of at most 50K tokens (of the strided RQ
+    training sample, as in the JAX package)."""
     _progress("kmeans")
     k = kmeans_ops.num_partitions_heuristic(float(est_total_tokens))
-    rng = np.random.default_rng(config.seed if config.seed is not None else 42)
-    n_s = int(sample_tokens.shape[0])
-    k = min(k, n_s)
-    init_idx = torch.from_numpy(rng.permutation(n_s)[:k].astype(np.int64))
-    init = sample_tokens[init_idx.to(sample_tokens.device)]
-    cents = kmeans_ops.lloyd(
-        sample_tokens,
-        init,
-        iters=config.kmeans_niters,
-        assign_chunk=kmeans_ops.assign_chunk_rows(k, floor=512),
-    )
-    cents = cents.cpu().numpy()
-    cents = cents / np.maximum(np.linalg.norm(cents, axis=1, keepdims=True), 1e-12)
-    centroids = cents.astype(np.float32)
+    seed = config.seed if config.seed is not None else 42
+    rq_book = None
+    if config.centroid_structure == "rq":
+        if k & (k - 1):
+            k = 1 << (k.bit_length() - 1)
+        c, f = rq_ops.rq_split(k)
+        n_s = int(sample_tokens.shape[0])
+        if n_s > rq_ops.RQ_MAX_TRAIN_TOKENS:
+            sample_tokens = sample_tokens[:: -(-n_s // rq_ops.RQ_MAX_TRAIN_TOKENS)]
+        rq_book = rq_ops.train_rq(
+            sample_tokens, c, f, iters=config.kmeans_niters, seed=seed
+        )
+        centroids = rq_book.flat_centroids()
+    else:
+        rng = np.random.default_rng(seed)
+        n_s = int(sample_tokens.shape[0])
+        k = min(k, n_s)
+        init_idx = torch.from_numpy(rng.permutation(n_s)[:k].astype(np.int64))
+        init = sample_tokens[init_idx.to(sample_tokens.device)]
+        cents = kmeans_ops.lloyd(
+            sample_tokens,
+            init,
+            iters=config.kmeans_niters,
+            assign_chunk=kmeans_ops.assign_chunk_rows(k, floor=512),
+        )
+        cents = cents.cpu().numpy()
+        cents = cents / np.maximum(
+            np.linalg.norm(cents, axis=1, keepdims=True), 1e-12
+        )
+        centroids = cents.astype(np.float32)
 
     _progress("codec")
     dim = centroids.shape[1]
@@ -464,8 +501,9 @@ def _train_streamed_artifacts(
         avg_residual=np.zeros(dim, np.float32),
         cluster_threshold=0.0,
         nbits=config.nbits,
+        rq=rq_book,
     )
-    heldout_n = min(n_s, 50_000)
+    heldout_n = min(int(sample_tokens.shape[0]), 50_000)
     return _finish_codec_artifacts(artifacts, sample_tokens[:heldout_n], config)
 
 
@@ -490,10 +528,10 @@ def _load_streamed_artifacts(
 
     Returns None unless every artifact file exists (training never completed
     or this is a fresh directory), or when no fingerprint file says what
-    they were trained under (retraining is the safe path). Raises
-    StorageError when artifacts were trained under a different config
-    fingerprint, and NotImplementedError over RQ sidecars (the RQ centroid
-    structure is not ported)."""
+    they were trained under (retraining is the safe path). RQ sidecars, when
+    both are present, are reloaded as the codebook. Raises StorageError when
+    artifacts were trained under a different config fingerprint, or when
+    the sidecars do not factor the centroid table (C*F != K)."""
     needed = (
         layout.centroids,
         layout.bucket_cutoffs,
@@ -517,22 +555,31 @@ def _load_streamed_artifacts(
             f"under {stored}, current build wants {expected}. Clear the "
             "index directory (or pass the original config) to proceed."
         )
-    if layout.rq_coarse.exists() and layout.rq_fine.exists():
-        raise NotImplementedError(
-            "resuming a streamed build with RQ sidecars (rq_coarse/rq_fine): "
-            "the RQ centroid structure is not ported yet (ROADMAP.md)"
-        )
 
     def f32(path):
         return np.asarray(load_npy(path, mmap=False), np.float32)
 
+    centroids = f32(layout.centroids)
+    rq_book = None
+    if layout.rq_coarse.exists() and layout.rq_fine.exists():
+        rq_book = rq_ops.RQCodebook(
+            coarse=f32(layout.rq_coarse), fine=f32(layout.rq_fine)
+        )
+        if rq_book.num_centroids != centroids.shape[0]:
+            raise StorageError(
+                "streamed resume refused: the RQ sidecars factor "
+                f"{rq_book.num_coarse} x {rq_book.num_fine} centroids, the "
+                f"centroid table holds {centroids.shape[0]}. Clear the index "
+                "directory to rebuild."
+            )
     return CodecArtifacts(
-        centroids=f32(layout.centroids),
+        centroids=centroids,
         bucket_cutoffs=f32(layout.bucket_cutoffs),
         bucket_weights=f32(layout.bucket_weights),
         avg_residual=f32(layout.avg_residual),
         cluster_threshold=float(f32(layout.cluster_threshold)[0]),
         nbits=config.nbits,
+        rq=rq_book,
     )
 
 
@@ -582,7 +629,6 @@ def create_index_streamed(
         and the sample are moved there.
     """
     config = config or IndexConfig()
-    _check_structure(config)
     device = resolve_device(device)
     if sample_tokens is None or est_total_tokens is None:
         raise ValueError("streamed build needs sample_tokens and est_total_tokens")

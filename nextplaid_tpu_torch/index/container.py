@@ -12,6 +12,9 @@ in device memory with the JAX package's shapes and padding:
   ivf_doc_ids    [nnz_pad]         i32
   token_grid     [ND_grid, Td, d]  bf16 or int8 (optional pinned corpus)
   token_scales   [ND_grid, Td]     bf16  (per-token dequant scales, int8 only)
+  rq_coarse      [C, d]            f32   (RQ indexes only: the factored
+  rq_fine        [F, d]            f32    codebook of ops/rq.py, K = C*F,
+  rq_inv_norms   [C, F]            f32    0 marking a degenerate pair)
 
 The int8 grid is doc-major like the bf16 one. The JAX package stores it
 token-interleaved in 128-doc groups ([NB, d, 128*Td], a TPU lane layout);
@@ -40,6 +43,7 @@ import torch
 
 from nextplaid_tpu_torch.index.config import Metadata
 from nextplaid_tpu_torch.ops import codec as codec_ops
+from nextplaid_tpu_torch.ops.rq import RQCodebook
 from nextplaid_tpu_torch.storage import merge_cache, native
 from nextplaid_tpu_torch.storage.npy import IndexLayout, load_json, load_npy
 from nextplaid_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -153,6 +157,13 @@ class DeviceIndex:
     # Per-token dequant scales [ND_grid, Td] bf16, present iff token_grid is
     # int8 (token ~= int8 row * scale; 0 marks an invalid token).
     token_scales: Optional[torch.Tensor] = None
+    # The factored RQ codebook (ops/rq.py), present when the index was built
+    # with centroid_structure="rq" and its sidecars factor the centroid
+    # table. `centroids` is always the full flat table: decompression never
+    # sees RQ; only stages 1-2 of staged search use the factors.
+    rq_coarse: Optional[torch.Tensor] = None  # [C, d] f32
+    rq_fine: Optional[torch.Tensor] = None  # [F, d] f32
+    rq_inv_norms: Optional[torch.Tensor] = None  # [C, F] f32
     n_docs: int = 0
     n_emb: int = 0
     nbits: int = 4
@@ -537,11 +548,15 @@ class DeviceIndex:
         doc_capacity: int = 0,
         token_capacity: int = 0,
         device: DeviceLike = None,
+        rq_coarse: Optional[np.ndarray] = None,
+        rq_fine: Optional[np.ndarray] = None,
     ) -> "DeviceIndex":
         """Pad host arrays as the JAX package does and stage them on
         `device` ("cuda" when None). `doc_capacity` / `token_capacity`
         reserve rows past the live counts that `append_batch` fills in
-        place. At 0 (the default) the shapes are the live counts padded."""
+        place. At 0 (the default) the shapes are the live counts padded.
+        `rq_coarse` / `rq_fine` carry an RQ index's factored codebook; its
+        inv norms are derived here."""
         device = resolve_device(device)
         ndocs = int(doclens.shape[0])
         nvec = int(codes.shape[0])
@@ -585,6 +600,7 @@ class DeviceIndex:
             bucket_cutoffs=_to_tensor(bucket_cutoffs, torch.float32, device),
             bucket_weights=_to_tensor(bucket_weights, torch.float32, device),
             avg_residual=_to_tensor(avg_residual, torch.float32, device),
+            **_rq_fields(rq_coarse, rq_fine, device),
             n_docs=ndocs,
             n_emb=nvec,
             nbits=nbits,
@@ -613,7 +629,8 @@ class DeviceIndex:
             holding bf16 values), or the JAX package's token-interleaved
             int8 grid [NB, d, 128*Td] with its `token_scales` [NB, 128*Td];
           - the bucketed layout: `grid_buckets` and `scale_buckets` (lists,
-            each bucket as above), `grid_perm` and `grid_doclens`.
+            each bucket as above), `grid_perm` and `grid_doclens`;
+          - an RQ index's `rq_coarse` and `rq_fine`.
         Bf16 values may come as float32; int8 grids are converted to this
         package's doc-major layout."""
         device = resolve_device(device)
@@ -662,6 +679,7 @@ class DeviceIndex:
         has_ivf = not grid_only and int(ivf_lengths.sum()) > 0
         return cls(
             **fields,
+            **_rq_fields(arrays.get("rq_coarse"), arrays.get("rq_fine"), device),
             token_grid=grid,
             token_scales=scales,
             n_docs=int(num_documents),
@@ -776,7 +794,23 @@ class DeviceIndex:
             doc_capacity=int(len(doclens) * f) + 2 if f > 1.0 else 0,
             token_capacity=int(len(codes) * f) if f > 1.0 else 0,
             device=device,
+            rq_coarse=h["rq_coarse"],
+            rq_fine=h["rq_fine"],
         )
+
+
+def _rq_fields(rq_coarse, rq_fine, device: torch.device) -> dict:
+    """The RQ fields of a DeviceIndex from host factors (None when absent)."""
+    if rq_coarse is None or rq_fine is None:
+        return {}
+    book = RQCodebook(
+        coarse=np.asarray(rq_coarse, np.float32), fine=np.asarray(rq_fine, np.float32)
+    )
+    return {
+        "rq_coarse": _to_tensor(book.coarse, torch.float32, device),
+        "rq_fine": _to_tensor(book.fine, torch.float32, device),
+        "rq_inv_norms": _to_tensor(book.inv_norms(), torch.float32, device),
+    }
 
 
 def load_host_arrays(index_path: str) -> dict:
@@ -785,7 +819,10 @@ def load_host_arrays(index_path: str) -> dict:
     src/index.rs:1026, with the manifest fast path, src/mmap.rs:1081-1300):
     the merge cache when no chunk changed since it was written, else the
     native mmap+memcpy merge, else numpy's concatenation; a fresh merge is
-    stored to the cache when the cache is on (`merge_cache.enabled`)."""
+    stored to the cache when the cache is on (`merge_cache.enabled`). The
+    RQ sidecars are read from their own files, never from the cache, and
+    dropped (None) when they do not factor the centroid table (C*F != K):
+    stale sidecars of an earlier build; the flat table is authoritative."""
     layout = IndexLayout(index_path)
     meta = Metadata.from_dict(load_json(layout.metadata))
 
@@ -835,6 +872,12 @@ def load_host_arrays(index_path: str) -> dict:
     doclens = (
         np.concatenate(doclens_list) if doclens_list else np.zeros(0, np.int64)
     )
+    rq_coarse = rq_fine = None
+    if layout.rq_coarse.exists() and layout.rq_fine.exists():
+        rq_coarse = np.asarray(load_npy(layout.rq_coarse), np.float32)
+        rq_fine = np.asarray(load_npy(layout.rq_fine), np.float32)
+        if rq_coarse.shape[0] * rq_fine.shape[0] != centroids.shape[0]:
+            rq_coarse = rq_fine = None
     return {
         "meta": meta,
         "centroids": centroids,
@@ -846,6 +889,8 @@ def load_host_arrays(index_path: str) -> dict:
         "doclens": doclens.astype(np.int32),
         "ivf": np.asarray(load_npy(layout.ivf), np.int32),
         "ivf_lengths": np.asarray(load_npy(layout.ivf_lengths), np.int64),
+        "rq_coarse": rq_coarse,
+        "rq_fine": rq_fine,
     }
 
 

@@ -18,7 +18,12 @@ Staged route (`mode="staged"`, or `"auto"` on an unpinned index above
   stage 1  query x centroid scores      one [Q*Tq, K] matmul for the batch
   stage 2  per-token top-nprobe cells   `_select_cells` (+ centroid-score
                                         threshold), merged per query and
-                                        ordered by weight (`_dedup_cells`)
+                                        ordered by weight (`_dedup_cells`);
+                                        on an RQ index both stages run over
+                                        the factored codebook instead
+                                        (`_select_cells_rq`: two small
+                                        matmuls and the pair top-k), with
+                                        the threshold applied in the merge
   stage 3  IVF candidate generation +   `_prune_candidates`: the selected
            weighted approximate prune   cells' posting lists as ONE flat
                                         [Q, B] stream of (doc id, cell
@@ -39,15 +44,21 @@ The JAX package shapes stage 3 around sorts and scans because of TPU scatter
 and XLA compile costs; this package uses `torch.searchsorted`, stable
 `torch.sort` and `scatter_reduce_` where they give the same sets: the same
 overflow count, the same truncation of the weight-sorted tail beyond the
-posting budget, the same survivors, with ties at every cut broken towards
-the lower doc id as the JAX package's stable sorts do.
+posting budget, and the same survivors, except where documents tie exactly
+on their approximate score at a cut. There this package keeps the lower doc
+ids (its per-doc sums are differences of an f64 running sum, so equal sets
+of weights give equal sums). The JAX package's sums are differences of one
+running f32 cumsum over the whole row (`nextplaid_tpu/index/search.py`,
+`_prune_candidates`), so rounding, not the doc id, decides which of the
+tied documents survive: the survivors can differ while their approximate
+scores agree to rounding. Parity tests compare such cuts with a tie
+tolerance.
 
 PyTorch runs eagerly, so batches need no padding to compile-friendly
 shapes: Q is the number of queries and Tq their longest length rounded up
-to 32. The RQ stage 1 of the JAX package belongs to a module that is not
-ported yet (ROADMAP.md); a grid-only index raises SearchError on the staged
-route, and an index whose IVF is stale after `append_batch` is rerouted to
-exhaustive search with a warning, as in the JAX package.
+to 32. A grid-only index raises SearchError on the staged route, and an
+index whose IVF is stale after `append_batch` is rerouted to exhaustive
+search with a warning, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -72,6 +83,7 @@ from nextplaid_tpu_torch.index.exact import (
     refine_topk,
 )
 from nextplaid_tpu_torch.ops.maxsim_kernel import MAX_DOCS, maxsim_grid_scores
+from nextplaid_tpu_torch.ops.rq import pair_scores_topk
 from nextplaid_tpu_torch.utils.errors import SearchError
 
 NEG_INF = float("-inf")
@@ -291,21 +303,74 @@ def _select_cells(
 
 
 def _dedup_cells(
-    cells: torch.Tensor, weights: torch.Tensor, k: int
+    cells: torch.Tensor,
+    weights: torch.Tensor,
+    k: int,
+    threshold: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge repeated cells per query (a cell probed by several query tokens
     contributes the SUM of their scores to every posting-list member), then
     order by descending weight so posting-budget truncation drops the least
-    promising cells first. Sentinel slots (cell == k) carry weight 0."""
+    promising cells first. Sentinel slots (cell == k) carry weight 0.
+
+    `threshold` (the RQ stage-1 path only) drops merged cells whose MAX
+    single-token score is below it: the reference's centroid_score_threshold
+    (search.rs:417-425) taken over the tokens that selected the cell rather
+    than over all tokens, since the [Q, Tq, K] score table is never built
+    under RQ (the JAX package's proxy semantics)."""
     cells_s, order = torch.sort(cells, dim=1, stable=True)
     w_s = torch.gather(weights, 1, order)
     sums, last = _run_sums(cells_s, w_s)
     keep = last & (cells_s < k)
+    if threshold is not None:
+        # Each run's max, read back at every slot of the run.
+        first = torch.ones_like(keep)
+        first[:, 1:] = cells_s[:, 1:] != cells_s[:, :-1]
+        run_id = torch.cumsum(first.long(), dim=1) - 1
+        run_max = torch.full_like(w_s, NEG_INF).scatter_reduce_(
+            1, run_id, w_s, "amax", include_self=True
+        )
+        keep = keep & (torch.gather(run_max, 1, run_id) >= threshold)
     merged_w = torch.where(keep, sums, torch.zeros_like(sums))
     merged_c = torch.where(keep, cells_s, torch.full_like(cells_s, k))
     # Descending weight, ties in cell order.
     order = torch.sort(-merged_w, dim=1, stable=True).indices
     return torch.gather(merged_c, 1, order), torch.gather(merged_w, 1, order)
+
+
+def _select_cells_rq(
+    queries: torch.Tensor, qmask: torch.Tensor, index: DeviceIndex, shapes: PipelineShapes
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stages 1-2 over the factored RQ codebook (ops/rq.py): two small
+    matmuls ([Q*Tq, C] and [Q*Tq, F]) and the separable pair top-k in a
+    top-a x top-b margin of max(32, 2*nprobe), instead of the [Q*Tq, K]
+    table. The threshold is applied when cells are merged (`_dedup_cells`).
+
+    Returns ([Q, Tq*nprobe] int64 cells with sentinel K, [Q, Tq*nprobe] f32
+    scores with 0 for empty slots)."""
+    k = index.num_centroids
+    q_n, tq, d = queries.shape
+    q_in, coarse, fine = queries.float(), index.rq_coarse, index.rq_fine
+    if shapes.stage1_precision != "highest":
+        q_in = q_in.to(torch.bfloat16).float()
+        coarse = coarse.to(torch.bfloat16).float()
+        fine = fine.to(torch.bfloat16).float()
+    q_flat = q_in.reshape(q_n * tq, d)
+    xc = (q_flat @ coarse.T).view(q_n, tq, -1)
+    xf = (q_flat @ fine.T).view(q_n, tq, -1)
+    margin = max(32, 2 * shapes.nprobe)
+    vals, cells = pair_scores_topk(
+        xc,
+        xf,
+        index.rq_inv_norms,
+        k=shapes.nprobe,
+        a=min(margin, coarse.shape[0]),
+        b=min(margin, fine.shape[0]),
+    )
+    valid = qmask[:, :, None] & torch.isfinite(vals)
+    cells = torch.where(valid, cells, torch.full_like(cells, k))
+    weights = torch.where(valid, vals, torch.zeros_like(vals)).float()
+    return cells.reshape(q_n, -1), weights.reshape(q_n, -1)
 
 
 def _approx_codes_scores(
@@ -661,17 +726,26 @@ def search_pipeline(
     q_n, tq, d = queries.shape
     _mark(marks, "start")
 
-    # Stage 1: batched centroid scores (a plain matmul, TF32 off).
-    q_in, cent = queries.float(), index.centroids
-    if shapes.stage1_precision != "highest":
-        q_in = q_in.to(torch.bfloat16).float()
-        cent = cent.to(torch.bfloat16).float()
-    s_raw = (q_in.reshape(q_n * tq, d) @ cent.T).view(q_n, tq, k)
-    s_masked = s_raw.masked_fill(~qmask[:, :, None], NEG_INF)
+    if index.rq_coarse is not None:
+        # Stages 1-2 over the factored codebook, the threshold applied in
+        # the merge. No [Q, Tq, K] table exists, so stage 3b's "codes"
+        # scoring falls back to the cell weights, as in the JAX package.
+        cells, weights = _select_cells_rq(queries, qmask, index, shapes)
+        cells, weights = _dedup_cells(cells, weights, k, threshold=shapes.threshold)
+        s_masked = None
+    else:
+        # Stage 1: batched centroid scores (a plain matmul, TF32 off).
+        q_in, cent = queries.float(), index.centroids
+        if shapes.stage1_precision != "highest":
+            q_in = q_in.to(torch.bfloat16).float()
+            cent = cent.to(torch.bfloat16).float()
+        s_raw = (q_in.reshape(q_n * tq, d) @ cent.T).view(q_n, tq, k)
+        s_masked = s_raw.masked_fill(~qmask[:, :, None], NEG_INF)
+        del s_raw
 
-    # Stage 2: cell selection + per-query merge of repeated cells.
-    cells, weights = _select_cells(s_masked, qmask, shapes, k)
-    cells, weights = _dedup_cells(cells, weights, k)
+        # Stage 2: cell selection + per-query merge of repeated cells.
+        cells, weights = _select_cells(s_masked, qmask, shapes, k)
+        cells, weights = _dedup_cells(cells, weights, k)
     _mark(marks, "stage12")
 
     # Stage 3 (+3b): weighted posting streams -> approximate prune -> union.
@@ -679,7 +753,7 @@ def search_pipeline(
         index, cells, weights, shapes, s_masked=s_masked, qmask=qmask,
         queries=queries, marks=marks,
     )
-    del s_raw, s_masked
+    del s_masked
     _mark(marks, "union")
 
     # Stage 4: exact MaxSim on the union (decompress once per candidate).

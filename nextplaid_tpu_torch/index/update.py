@@ -16,13 +16,16 @@ src/update.rs and src/index.rs:1404-1591). The hot stages run on the device:
 On-disk chunk layout, IVF merge, weighted cluster-threshold updates and the
 append-to-last-chunk (<2000 docs) rule follow the reference byte formats, so
 the JAX package and this one write the same bytes from the same centroids.
-The RQ centroid structure is not ported: an index with RQ sidecars raises
-NotImplementedError here, as the port's build does.
+On an RQ index (rq_coarse.npy and rq_fine.npy beside the centroids) buffer
+mode assigns through the factored codebook, a centroid expansion drops the
+sidecars (stage 1 falls back to the flat table) and a start-from-scratch
+rebuild keeps the structure, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from dataclasses import dataclass
 from pathlib import Path
@@ -38,6 +41,7 @@ from nextplaid_tpu_torch.index.config import (
     default_start_from_scratch,
 )
 from nextplaid_tpu_torch.ops import kmeans as kmeans_ops
+from nextplaid_tpu_torch.ops import rq as rq_ops
 from nextplaid_tpu_torch.storage.npy import (
     IndexLayout,
     atomic_write_json,
@@ -76,12 +80,8 @@ class UpdateConfig:
     force_cpu: bool = False
 
 
-def _refuse_rq(layout: IndexLayout) -> None:
-    if layout.rq_coarse.exists() or layout.rq_fine.exists():
-        raise NotImplementedError(
-            "updating an index with RQ sidecars (rq_coarse/rq_fine): the RQ "
-            "centroid structure is not ported yet (ROADMAP.md)"
-        )
+def _has_rq(layout: IndexLayout) -> bool:
+    return layout.rq_coarse.exists() and layout.rq_fine.exists()
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +246,6 @@ def update_centroids(
     layout = IndexLayout(index_path)
     if not layout.centroids.exists():
         return 0
-    _refuse_rq(layout)
     existing = np.asarray(load_npy(layout.centroids, mmap=False), np.float32)
     dim = existing.shape[1]
     flat = (
@@ -285,6 +284,18 @@ def update_centroids(
 
     final = np.concatenate([existing, new_centroids])
     atomic_write_npy(layout.centroids, final)
+
+    # Appended centroids are not coarse+fine pairs: drop the factorization,
+    # so search and later updates take the flat path (correct, slower at
+    # huge K).
+    if layout.rq_coarse.exists() or layout.rq_fine.exists():
+        logging.getLogger(__name__).warning(
+            "centroid expansion on an RQ index: dropping rq_coarse/rq_fine "
+            "sidecars (stage 1 falls back to the flat centroid table); "
+            "rebuild the index to restore the factored structure"
+        )
+        layout.rq_coarse.unlink(missing_ok=True)
+        layout.rq_fine.unlink(missing_ok=True)
 
     if layout.ivf_lengths.exists():
         old_lengths = np.asarray(load_npy(layout.ivf_lengths, mmap=False))
@@ -327,13 +338,20 @@ def update_index(
     device = resolve_device(device)
     batch_size = batch_size or DEFAULT_BATCH_SIZE
     layout = IndexLayout(index_path)
-    _refuse_rq(layout)
     meta = Metadata.from_dict(load_json(layout.metadata))
 
     centroids = np.asarray(load_npy(layout.centroids, mmap=False), np.float32)
     cutoffs = np.asarray(load_npy(layout.bucket_cutoffs, mmap=False), np.float32)
     weights = np.asarray(load_npy(layout.bucket_weights, mmap=False), np.float32)
     avg_res = np.asarray(load_npy(layout.avg_residual, mmap=False), np.float32)
+    # An RQ index assigns through its codebook: the flat argmax could pick a
+    # degenerate pair's cell (inv_norm 0), which queries never probe.
+    rq_book = None
+    if _has_rq(layout):
+        rq_book = rq_ops.RQCodebook(
+            coarse=np.asarray(load_npy(layout.rq_coarse, mmap=False), np.float32),
+            fine=np.asarray(load_npy(layout.rq_fine, mmap=False), np.float32),
+        )
     artifacts = build_mod.CodecArtifacts(
         centroids=centroids,
         bucket_cutoffs=cutoffs,
@@ -341,6 +359,7 @@ def update_index(
         avg_residual=avg_res,
         cluster_threshold=0.0,
         nbits=meta.nbits,
+        rq=rq_book,
     )
     dim = centroids.shape[1]
 
@@ -542,7 +561,6 @@ def update(
     num_new = len(embeddings)
 
     with file_lock(layout.lock):
-        _refuse_rq(layout)
         meta = Metadata.from_dict(load_json(layout.metadata))
 
         # --- Start-from-scratch mode.
@@ -559,6 +577,8 @@ def update(
                     max_points_per_centroid=config.max_points_per_centroid,
                     n_samples_kmeans=config.n_samples_kmeans,
                     start_from_scratch=config.start_from_scratch,
+                    # The rebuild keeps the index's centroid structure.
+                    centroid_structure="rq" if _has_rq(layout) else "auto",
                 )
                 build_mod.create_index(combined, index_path, index_config, device=device)
                 if (

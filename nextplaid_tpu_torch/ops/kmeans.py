@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,22 +86,32 @@ def lloyd(
     k = centroids.shape[0]
     for _ in range(iters):
         codes = assign_codes(data, centroids, chunk_rows=assign_chunk).long()
-        sums = torch.zeros_like(centroids)
-        # Sums in a fixed order on either device, so a build retrained from
-        # the same sample (a resumed streamed build's reference) writes the
-        # same bytes. On the card index_add_ sums with atomics, in no fixed
-        # order, and index_put_'s accumulate sorts the indices first; on the
-        # CPU it is the other way round: index_put_'s accumulate splits the
-        # rows over threads and can differ from run to run, index_add_ sums
-        # serially in index order.
-        if data.is_cuda:
-            sums.index_put_((codes,), data, accumulate=True)
-        else:
-            sums.index_add_(0, codes, data)
-        counts = torch.bincount(codes, minlength=k).to(torch.float32)
+        sums, counts = segment_sums(data, codes, k)
         means = sums / torch.clamp(counts, min=1.0)[:, None]
         centroids = torch.where(counts[:, None] > 0, means, centroids)
     return centroids
+
+
+def segment_sums(
+    rows: torch.Tensor, codes: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-cluster f32 sums [k, d] and counts [k] of `rows` [n, d] under
+    `codes` [n] int64 (every code below k).
+
+    Sums in a fixed order on either device, so a build retrained from the
+    same sample (a resumed streamed build's reference) writes the same
+    bytes. On the card index_add_ sums with atomics, in no fixed order, and
+    index_put_'s accumulate sorts the indices first; on the CPU it is the
+    other way round: index_put_'s accumulate splits the rows over threads
+    and can differ from run to run, index_add_ sums serially in index
+    order."""
+    sums = torch.zeros((k, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    if rows.is_cuda:
+        sums.index_put_((codes,), rows, accumulate=True)
+    else:
+        sums.index_add_(0, codes, rows)
+    counts = torch.bincount(codes, minlength=k).to(torch.float32)
+    return sums, counts
 
 
 def prepare_training_sample(

@@ -173,8 +173,8 @@ class IndexLayout:
         instead of silently producing a corrupt index."""
         return self.root / "streamed_fingerprint.json"
 
-    # Optional RQ sidecars (factored centroid structure of the JAX package; the flat
-    # centroids.npy remains authoritative and reference-compatible).
+    # Optional RQ sidecars (the factored centroid structure, ops/rq.py); the
+    # flat centroids.npy remains authoritative and reference-compatible.
     @property
     def rq_coarse(self) -> Path:
         return self.root / "rq_coarse.npy"

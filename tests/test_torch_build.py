@@ -163,9 +163,17 @@ def test_build_ivf_dedups_and_sorts():
 
 
 def test_unported_structure_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_index(_corpus(n_docs=3), str(tmp_path / "i"),
-                     IndexConfig(centroid_structure="rq"), device="cpu")
+    """The RQ structure, once refused, is ported (tests/test_torch_rq.py):
+    an "rq" build writes the factored codebook beside the flat table, whose
+    K it factors, and "auto" stays flat."""
+    docs = _corpus(n_docs=3)
+    meta = create_index(docs, str(tmp_path / "i"),
+                        IndexConfig(centroid_structure="rq"), device="cpu")
+    layout = IndexLayout(str(tmp_path / "i"))
+    c, f = np.load(layout.rq_coarse).shape[0], np.load(layout.rq_fine).shape[0]
+    assert c * f == meta.num_partitions
+    create_index(docs, str(tmp_path / "i"), IndexConfig(), device="cpu")
+    assert not layout.rq_coarse.exists() and not layout.rq_fine.exists()
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +289,8 @@ def test_resume_without_fingerprint_retrains(tmp_path, caplog):
 
 
 def test_resume_over_rq_sidecars_raises(tmp_path):
+    """A resume reloads RQ sidecars as the codebook (tests/test_torch_rq.py);
+    sidecars that do not factor the centroid table are refused."""
     docs = _corpus(seed=6)
     path = str(tmp_path / "idx")
     with pytest.raises(_Interrupted):
@@ -288,5 +298,5 @@ def test_resume_over_rq_sidecars_raises(tmp_path):
     layout = IndexLayout(path)
     np.save(layout.rq_coarse, np.zeros((2, 32), np.float32))
     np.save(layout.rq_fine, np.zeros((2, 32), np.float32))
-    with pytest.raises(NotImplementedError, match="RQ"):
+    with pytest.raises(StorageError, match="RQ sidecars"):
         _torch_build(docs, path, resume=True)

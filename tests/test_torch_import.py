@@ -18,6 +18,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.dirname(nextplaid_tpu_torch.__file__)
 GOLDEN = os.path.join(ROOT, "tests", "golden", "index_nbits4")
 FORBIDDEN = ("jax", "flax", "nextplaid_tpu")
+CODESEARCH_MODULES = ("cli", "config", "display", "embed", "indexer", "install", "parser",
+                      "ranking", "searcher", "structparse", "types", "webformats")
 
 
 def _sources():
@@ -52,7 +54,10 @@ def test_import_leaves_jax_out():
         "nextplaid_tpu_torch.storage.convert, nextplaid_tpu_torch.api, "
         "nextplaid_tpu_torch.api.server, nextplaid_tpu_torch.api.encode_pool, "
         "nextplaid_tpu_torch.client, nextplaid_tpu_torch.client.cli, "
-        "nextplaid_tpu_torch.eval, nextplaid_tpu_torch.scripts_export\n"
+        "nextplaid_tpu_torch.eval, nextplaid_tpu_torch.scripts_export, "
+        "nextplaid_tpu_torch.ops.rq, nextplaid_tpu_torch.codesearch, "
+        + ", ".join(f"nextplaid_tpu_torch.codesearch.{m}" for m in CODESEARCH_MODULES)
+        + "\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'nextplaid_tpu') or "
         "m.startswith(('jax.', 'flax.', 'nextplaid_tpu.'))]\n"
         "print(bad)\n"
@@ -89,6 +94,8 @@ def test_build_without_device_raises(no_cuda, tmp_path):
         create_index(docs, str(tmp_path / "a"), IndexConfig(nbits=2))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         create_index_from_device(torch.from_numpy(docs[0]), [4], str(tmp_path / "b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_index(docs, str(tmp_path / "c"), IndexConfig(nbits=2, centroid_structure="rq"))
 
 
 def test_update_without_device_raises(no_cuda, tmp_path):

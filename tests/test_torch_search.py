@@ -190,8 +190,8 @@ def test_pad_queries_matches_jax():
 
 
 def test_unported_routes_raise(built, tmp_path):
-    """What still raises (an RQ build, staged search on a grid-only index),
-    and what no longer does: staged mode answers."""
+    """What still raises (staged search on a grid-only index), and what no
+    longer does: staged mode answers, and an RQ build builds."""
     path, docs, queries, ref, _ = built
     index = DeviceIndex.load(path, device="cpu")
     staged = SearchParameters(mode="auto", exact_max_embeddings=0,
@@ -202,9 +202,9 @@ def test_unported_routes_raise(built, tmp_path):
         # scored exactly: the staged top-10 holds the exact top-1.
         got = search_batch(index, queries, params)
         assert [r.passage_ids[0] for r in got] == [r.passage_ids[0] for r in exact]
-    with pytest.raises(NotImplementedError, match="rq"):
-        create_index(docs[:8], str(tmp_path / "rq"),
-                     IndexConfig(nbits=4, centroid_structure="rq"), device="cpu")
+    create_index(docs[:8], str(tmp_path / "rq"),
+                 IndexConfig(nbits=4, centroid_structure="rq"), device="cpu")
+    assert DeviceIndex.load(str(tmp_path / "rq"), device="cpu").rq_coarse is not None
     grid_only = load_grid_only(path, dtype="bf16", buckets=1, device="cpu")
     with pytest.raises(SearchError, match="grid-only"):
         search_batch(grid_only, queries, dataclasses.replace(staged, mode="staged"))

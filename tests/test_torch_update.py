@@ -354,10 +354,15 @@ def test_metadata_length_mismatch_raises(pair):
 
 
 def test_rq_sidecars_not_ported(pair):
-    _, b = pair
-    np.save(os.path.join(b, "rq_coarse.npy"), np.zeros((2, DIM), np.float32))
-    with pytest.raises(NotImplementedError, match="RQ"):
-        TU.update(_docs(2, 15), b, TU.UpdateConfig(**_scratch_off()), device=CPU)
+    """RQ updates are ported (tests/test_torch_rq.py). A lone rq_coarse.npy
+    is no codebook: both packages update through the flat table, to the
+    same bytes."""
+    a, b = pair
+    for p in (a, b):
+        np.save(os.path.join(p, "rq_coarse.npy"), np.zeros((2, DIM), np.float32))
+    JU.update(_docs(2, 15), a, JU.UpdateConfig(**_scratch_off()))
+    TU.update(_docs(2, 15), b, TU.UpdateConfig(**_scratch_off()), device=CPU)
+    _assert_same_dir(a, b)
 
 
 # ---------------------------------------------------------------------------
