@@ -85,6 +85,26 @@ port's paths:
      hits against a CPU search of the same index and query embeddings, and
      `python -m nextplaid_tpu_torch.codesearch.cli --device cuda --json`
      over a model directory of the same weights.
+  11. doc-range sharding (`nextplaid_tpu_torch.parallel`, this slice's
+     path), after the encoder phase and before the service: the SciFact
+     index over an in-process mesh of 4 shards on the one card, (a)
+     `ShardedGridIndex.shard_grid_only` bf16 and int8 and
+     `search_batch_sharded_grid` (both kernels, one launch a shard, one
+     shard's output held against the plain version) against the
+     single-card pinned grid; (b) `ShardedIndex.shard(capacity_factor=1.5)`:
+     exact against the single-card scan, staged recall at the default and
+     "quality" points against the single card's, one 32-doc batch appended
+     in place to it (then `refresh_ivf`) and to both grids, each against a
+     fresh shard of the updated index; (c) `lloyd_sharded` against `lloyd`
+     on the build's k-means sample at K 16,384; (e) the bf16 grid over two
+     processes x 2 shards on the card (gloo, the ranks sharing the card)
+     and one process x 4 shards (NCCL), joined by `init_distributed` from
+     the NEXT_PLAID_* variables (this script run as
+     `chip_smoke.py --rank ...`); (f) `build_app` serving "sharded" and
+     "sharded_grid" (one shard a visible card), HTTP top-10 against the same
+     search in process and a /documents batch appended in place (no
+     reload). Its (d) runs after phase 5: the megascale index as 4 int8 grid
+     shards, unrefined top-10 against phase 4's, recall@10.
   Phases 9 and 10 run after phase 8 and before phases 4-5 (grid-only and
   staged serving at megascale), whose build needs the most memory.
 The megascale path also loads its host arrays twice with the merge cache
@@ -751,9 +771,82 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
         del full
         gc.collect()
         torch.cuda.empty_cache()
-        return (launches, max_err, kernel_ms, plain_ms, bound_ms, bound_by), staged
+        # The tenth slice's path at this scale: the same corpus as sharded
+        # int8 grids, after the single-card grids are gone.
+        mega = mega_sharded_phase(path, device, mk, batches, unrefined, oracle)
+        return (launches, max_err, kernel_ms, plain_ms, bound_ms, bound_by), staged, mega
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
+
+
+def mega_sharded_phase(path, device, mk, batches, unrefined, oracle):
+    """Phase (d) of the sharded path: `shard_grid_only(dtype="int8")` of the
+    megascale index onto SHARDS shards on the one card, its unrefined top-10
+    against the single-card bucketed grid's (`unrefined`, cut ties aside)
+    and recall@10 against the f32 oracle, on the first batch; QPS over the
+    batches of 64. Returns the int8 kernel's numbers of the phase."""
+    from nextplaid_tpu_torch.index import SearchParameters
+    from nextplaid_tpu_torch.index.exact import quantize_queries_int8
+    from nextplaid_tpu_torch.index.search import _pad_queries
+    from nextplaid_tpu_torch.parallel import ShardedGridIndex, make_mesh, search_batch_sharded_grid
+    from nextplaid_tpu_torch.parallel import sharded as ps
+
+    kernel = mk.maxsim_grid_scores_int8i
+    mesh = make_mesh(devices=[device] * SHARDS)
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sg = ShardedGridIndex.shard_grid_only(path, mesh, "int8")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grid_gb = sum(g.numel() + 2 * sc.numel() for g, sc in zip(sg.grids, sg.scales)) / 1e9
+    params = SearchParameters(top_k=10)
+    search_batch_sharded_grid(sg, batches[0], params)  # warm-up
+    take_launches(kernel)
+    pass_s, got = [], None
+    for _ in range(MEGA_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = [search_batch_sharded_grid(sg, b, params) for b in batches]
+        pass_s.append(time.perf_counter() - t0)
+        got = results[0]
+    launches = take_launches(kernel)
+    if launches < MEGA_PASSES * len(batches) * SHARDS:
+        raise AssertionError(f"sharded (d): {launches} int8 kernel launches")
+    check_results(got, MEGA_BATCH)
+    gap = assert_same_shard_topk(got, unrefined,
+                                 "sharded (d) vs the single-card unrefined int8 grid")
+    recall = recall_at_10(got, oracle)
+    if recall < MIN_RECALL_INT8:
+        raise AssertionError(f"sharded (d): recall@10 {recall} < {MIN_RECALL_INT8}")
+    q_arr, _ = _pad_queries(batches[0], sg.dim)
+    q_dev = torch.from_numpy(q_arr).to(device)
+    qi8, qs = quantize_queries_int8(q_dev.reshape(-1, sg.dim))
+    err = check_kernel(kernel, mk.maxsim_grid_scores_int8i_reference,
+                       (qi8, qs, sg.grids[0], sg.scales[0], q_arr.shape[1]),
+                       f"sharded int8 megascale shard 0, {MEGA_BATCH}q x {sg.rows} rows")
+    shard_ms = [time_ms(lambda i=i: ps.shard_grid_scores(sg, i, q_dev), reps=3)
+                for i in range(SHARDS)]
+    take_launches(kernel)
+    bound_ms, bound_by = maxsim_bound_int8(qi8, [sg.grids[0]], [sg.scales[0]], MEGA_BATCH)
+    qps = [len(batches) * MEGA_BATCH / x for x in pass_s]
+    print(f"sharded (d) [megascale int8 grid, {SHARDS} shards on one card]: shard_grid_only "
+          f"{load_s:.2f} s, {sg.rows} rows x Td {sg.grid_td} a shard, grid + scales {grid_gb:.3f} "
+          f"GB, peak allocated {peak_gb:.3f} GB ({before_gb:.3f} GB allocated before the load); "
+          f"batches of {MEGA_BATCH}: p50 "
+          f"{statistics.median(qps):.2f} QPS (min {min(qps):.2f}, max {max(qps):.2f}); per-shard "
+          f"kernel {', '.join(f'{x:.3f}' for x in shard_ms)} ms (shard 0's bound {bound_ms:.3f} "
+          f"ms, {bound_by}); unrefined top-10 = the single-card grid's (largest score gap "
+          f"{gap:.3e}, bound {SHARD_ATOL:.0e}), recall@10 vs the f32 oracle {recall:.4f}; kernel "
+          f"launches {launches}", flush=True)
+    del sg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mega_sharded_launches": launches, "mega_sharded_max_abs_err": err,
+            "mega_sharded_shard_ms": shard_ms, "mega_sharded_shard_bound_ms": bound_ms,
+            "mega_sharded_load_s": load_s, "mega_sharded_topk_gap": gap}
 
 
 @contextlib.contextmanager
@@ -932,20 +1025,27 @@ def variants_phase(device, mv, mk):
     return entry
 
 
-def assert_same_topk(got, want, tol, label):
-    """Score-sorted lists equal up to ties: scores within `tol`, and a doc in
-    only one list must score within `tol` of the other list's last score."""
+def assert_same_topk(got, want, tol, label, atol=None):
+    """Score-sorted lists equal up to ties: scores within `tol` relative and
+    `atol` absolute (`tol` when None), and a doc in only one list must score
+    within that bound of the other list's last score. Returns the largest
+    gap between the lists' scores, rank for rank."""
+    atol = tol if atol is None else atol
+    gap = 0.0
     for g, w in zip(got, want):
         if len(g.passage_ids) != len(w.passage_ids):
             raise AssertionError(f"{label}: result lengths differ")
-        if not np.allclose(g.scores, w.scores, rtol=tol, atol=tol):
-            raise AssertionError(f"{label}: scores differ beyond {tol}")
+        if not np.allclose(g.scores, w.scores, rtol=tol, atol=atol):
+            raise AssertionError(f"{label}: scores differ beyond rtol {tol}, atol {atol}")
+        if len(g.scores):
+            gap = max(gap, float(np.max(np.abs(np.subtract(g.scores, w.scores)))))
         g_map, w_map = dict(zip(g.passage_ids, g.scores)), dict(zip(w.passage_ids, w.scores))
-        kth = w.scores[-1]
+        kth = w.scores[-1] if len(w.scores) else 0.0
         for doc in set(g_map) ^ set(w_map):
             score = g_map.get(doc, w_map.get(doc))
-            if abs(score - kth) > tol * (1 + abs(kth)):
+            if abs(score - kth) > atol + tol * abs(kth):
                 raise AssertionError(f"{label}: doc {doc} (score {score}) is in one top-k only")
+    return gap
 
 
 def staged_phase(full, device, mk, batches, queries, oracle):
@@ -2769,6 +2869,415 @@ def codesearch_phase(device, mk, widths=GTE_WIDTHS, n_queries=CS_QUERIES):
         shutil.rmtree(CS_DIR, ignore_errors=True)
 
 
+SHARD_DIR = os.path.join(ROOT, "build", "chip_smoke_sharded")
+SHARDS = 4  # shards of the in-process mesh, all on the one card
+SHARD_CAPACITY = 1.5
+SHARD_PASSES = 3
+# Sharded vs single-card top-10: the same kernel (or scan) over the same
+# rows under other launch plans and batch shapes. Scores (up to ~35 over 32
+# query tokens) within this absolute bound, and no relative slack.
+SHARD_ATOL = 4e-3
+# One Lloyd iteration from one init: the same assignments (the same chunked
+# f32 argmax), the cluster sums added in another order.
+LLOYD_ATOL = 1e-5
+RANK_TIMEOUT_S = 300
+
+
+def assert_same_shard_topk(got, want, label):
+    """`assert_same_topk` at SHARD_ATOL; returns the largest score gap."""
+    return assert_same_topk(got, want, 0.0, label, atol=SHARD_ATOL)
+
+
+def take_launches(kernel):
+    """The kernel's launches since the last reset; resets the count."""
+    n, kernel.launches = kernel.launches, 0
+    return n
+
+
+def rank_worker(device, path, queries_path, out_path, local_shards):
+    """One rank of phase (e), in its own process: joins the mesh from the
+    NEXT_PLAID_* environment variables on `device`, shards the index's bf16
+    grid over its `local_shards` shards there and searches the saved
+    queries; writes its backend, launches, wall and results to `out_path`."""
+    import torch.distributed as dist
+
+    from nextplaid_tpu_torch.index import SearchParameters
+    from nextplaid_tpu_torch.ops import maxsim_kernel as mk
+    from nextplaid_tpu_torch.parallel import (
+        ShardedGridIndex, init_distributed, make_mesh, search_batch_sharded_grid,
+    )
+
+    if not init_distributed(device=device):
+        raise AssertionError("the NEXT_PLAID_* environment did not form a process group")
+    mesh = make_mesh(devices=[device] * int(local_shards))
+    sg = ShardedGridIndex.shard_grid_only(path, mesh, "bf16")
+    queries = list(np.load(queries_path))
+    params = SearchParameters(top_k=10)
+    search_batch_sharded_grid(sg, queries, params)  # warm-up
+    take_launches(mk.maxsim_grid_scores)
+    t0 = time.perf_counter()
+    results = search_batch_sharded_grid(sg, queries, params)  # ends in a copy to the host
+    wall = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump({"rank": mesh.rank, "world_size": mesh.world_size, "shards": mesh.size,
+                   "backend": dist.get_backend(), "launches": take_launches(mk.maxsim_grid_scores),
+                   "wall_s": wall, "results": [[r.passage_ids, r.scores] for r in results]}, f)
+    dist.destroy_process_group()
+
+
+def run_ranks(device, path, queries, out_dir):
+    """Phase (e): two processes x 2 shards on `device` (gloo: the ranks
+    share the card) and one process x 4 shards (NCCL on a card of its own),
+    all three started together. Returns each group's outputs by rank; a rank
+    that fails or outlives RANK_TIMEOUT_S fails the phase."""
+    import socket
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    q_path = os.path.join(out_dir, "queries.npy")
+    np.save(q_path, np.stack(queries))
+    groups = {"gloo": (2, SHARDS // 2, free_port()), "nccl": (1, SHARDS, free_port())}
+    env = {k: v for k, v in os.environ.items() if not k.startswith("NEXT_PLAID_")}
+    procs = []
+    for group, (world, local, port) in groups.items():
+        for rank in range(world):
+            out = os.path.join(out_dir, f"{group}_{rank}.json")
+            procs.append((group, rank, out, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(device), path, q_path,
+                 out, str(local)],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=dict(env, NEXT_PLAID_COORDINATOR=f"127.0.0.1:{port}",
+                         NEXT_PLAID_NUM_PROCESSES=str(world), NEXT_PLAID_PROCESS_ID=str(rank)))))
+    outputs = {}
+    try:
+        for group, rank, out, proc in procs:
+            log, _ = proc.communicate(timeout=RANK_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"sharded (e): {group} rank {rank} failed:\n{log[-3000:]}")
+            with open(out) as f:
+                outputs.setdefault(group, []).append(json.load(f))
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return outputs
+
+
+def as_results(pairs):
+    import types
+
+    return [types.SimpleNamespace(passage_ids=ids, scores=scores) for ids, scores in pairs]
+
+
+def sharded_phase(device, mk, src_path, topics, queries):
+    """This slice's path: doc-range sharding at SciFact scale on an
+    in-process mesh of SHARDS shards on the one card. (a) `shard_grid_only`
+    bf16 and int8 and `search_batch_sharded_grid` over the 320 queries
+    against the single-card pinned grid; (b) `ShardedIndex` (capacity 1.5):
+    exact against the single-card scan, staged recall at the default and
+    "quality" points against the single card's, one 32-doc batch appended to
+    it (then `refresh_ivf`) and to both grids, each against a fresh shard of
+    the updated index; (c) `lloyd_sharded` against `lloyd` on the build's
+    k-means sample; (e) the grid over two processes x 2 shards (gloo) and
+    one process x 4 shards (NCCL); (f) the service's serve modes "sharded"
+    and "sharded_grid". Returns the two kernels' numbers of the phase."""
+    from nextplaid_tpu_torch.api.models import IndexConfigStored
+    from nextplaid_tpu_torch.client import NextPlaidClient
+    from nextplaid_tpu_torch.client.client import _doc_payload
+    from nextplaid_tpu_torch.index import (
+        DeviceIndex, SearchParameters, UpdateConfig, search_batch, update_or_create,
+    )
+    from nextplaid_tpu_torch.index.exact import quantize_queries_int8
+    from nextplaid_tpu_torch.index.search import _pad_queries
+    from nextplaid_tpu_torch.ops.kmeans import assign_chunk_rows, lloyd, num_partitions_heuristic
+    from nextplaid_tpu_torch.parallel import (
+        HostIndexData, ShardedGridIndex, ShardedIndex, lloyd_sharded, make_mesh,
+        search_batch_sharded, search_batch_sharded_grid,
+    )
+    from nextplaid_tpu_torch.parallel import sharded as ps
+    from nextplaid_tpu_torch.storage.npy import atomic_write_json, load_json
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    path = os.path.join(SHARD_DIR, "scifact")
+    kernels = {"bf16": mk.maxsim_grid_scores, "int8": mk.maxsim_grid_scores_int8i}
+    plains = {"bf16": mk.maxsim_grid_scores_reference,
+              "int8": mk.maxsim_grid_scores_int8i_reference}
+    out = {dt: {"sharded_launches": 0, "sharded_max_abs_err": 0.0} for dt in kernels}
+    params = SearchParameters(top_k=10)
+    try:
+        shutil.copytree(src_path, path)
+        n0 = load_json(os.path.join(path, "metadata.json"))["num_documents"]
+        mesh = make_mesh(devices=[device] * SHARDS)
+        q_arr, _ = _pad_queries(queries, 128)
+        q_dev = torch.from_numpy(q_arr).to(device)
+        tq = q_arr.shape[1]
+        gaps = []  # the largest score gap of every top-10 comparison
+        for k in kernels.values():
+            take_launches(k)
+
+        # (a) sharded grids, both kernels, against the single-card pinned grid.
+        grids = {}
+        for dtype, kernel in kernels.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sg = ShardedGridIndex.shard_grid_only(path, mesh, dtype)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            single = DeviceIndex.load(path, device=device).with_token_grid(dtype=dtype)
+            want = search_batch(single, queries, params)
+            del single
+            search_batch_sharded_grid(sg, queries, params)  # warm-up
+            take_launches(kernel)
+            pass_s = []
+            for _ in range(SHARD_PASSES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = search_batch_sharded_grid(sg, queries, params)
+                pass_s.append(time.perf_counter() - t0)
+            launches = take_launches(kernel)
+            if launches < SHARD_PASSES * SHARDS:
+                raise AssertionError(f"sharded (a) {dtype}: {launches} kernel launches in "
+                                     f"{SHARD_PASSES} passes over {SHARDS} shards")
+            out[dtype]["sharded_launches"] += launches
+            check_results(got, NUM_QUERIES)
+            gaps.append(assert_same_shard_topk(got, want,
+                                               f"sharded (a) {dtype} vs the single-card grid"))
+            qflat = q_dev.reshape(-1, 128)
+            args = ((qflat.to(torch.bfloat16), sg.grids[0], sg.doclens[0], tq) if dtype == "bf16"
+                    else (*quantize_queries_int8(qflat), sg.grids[0], sg.scales[0], tq))
+            err = check_kernel(kernel, plains[dtype], args,
+                               f"sharded {dtype} shard 0, {q_arr.shape[0]}q x {sg.rows} rows")
+            take_launches(kernel)
+            bound_ms, bound_by = (maxsim_bound(*args)[:2] if dtype == "bf16" else maxsim_bound_int8(
+                args[0], [sg.grids[0]], [sg.scales[0]], q_arr.shape[0]))
+            out[dtype]["sharded_max_abs_err"] = err
+            on_dev = {mesh.devices[0]: q_dev}
+            shard_ms = [time_ms(lambda i=i: ps.shard_grid_scores(sg, i, q_dev), reps=10)
+                        for i in range(SHARDS)]
+            tiles = ps.grid_tiles(sg, on_dev, 10)
+            merge_ms = time_ms(lambda: ps.merge_tiles(mesh, tiles, 10), reps=20)
+            take_launches(kernel)
+            qps = [NUM_QUERIES / x for x in pass_s]
+            out[dtype].update(sharded_shard_ms=shard_ms, sharded_merge_ms=merge_ms,
+                              sharded_shard_bound_ms=bound_ms, sharded_shard_bound_by=bound_by)
+            print(f"sharded (a) [{dtype} grid, {SHARDS} shards on one card]: shard_grid_only "
+                  f"{load_s:.2f} s, {sg.rows} rows x Td {sg.grid_td} a shard; {NUM_QUERIES} queries "
+                  f"p50 {statistics.median(qps):.1f} QPS (min {min(qps):.1f}, max {max(qps):.1f}); "
+                  f"per-shard kernel {', '.join(f'{x:.3f}' for x in shard_ms)} ms (shard 0's bound "
+                  f"{bound_ms:.3f} ms, {bound_by}), merge {merge_ms:.3f} ms; top-10 = the "
+                  f"single-card pinned grid's; kernel launches {launches}", flush=True)
+            grids[dtype] = (sg, got)
+
+        # (b) the compressed index: exact, staged, appends.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        si = ShardedIndex.shard(HostIndexData.load(path), mesh, SHARD_CAPACITY)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        unpinned = DeviceIndex.load(path, device=device)
+        exact = SearchParameters(top_k=10, mode="exact")
+        oracle = search_batch(unpinned, queries, exact)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = search_batch_sharded(si, queries, exact)
+        exact_s = time.perf_counter() - t0
+        gaps.append(assert_same_shard_topk(got, oracle, "sharded (b) exact vs the single-card scan"))
+        staged = []
+        for label, p in (("default", SearchParameters(top_k=10, mode="staged")),
+                         ('"quality"', SearchParameters.preset("quality", top_k=10, mode="staged"))):
+            r_single = recall_at_10(search_batch(unpinned, queries, p), oracle)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = search_batch_sharded(si, queries, p)
+            wall = time.perf_counter() - t0
+            check_results(got, NUM_QUERIES)
+            r_sharded = recall_at_10(got, oracle)
+            if r_sharded < r_single - RECALL_SLACK:
+                raise AssertionError(f"sharded (b) staged {label}: recall@10 {r_sharded} < "
+                                     f"single-card {r_single} - {RECALL_SLACK}")
+            staged.append(f"{label} {r_sharded:.4f} (single card {r_single:.4f}, "
+                          f"{NUM_QUERIES / wall:.1f} QPS)")
+        del unpinned
+        print(f"sharded (b) [ShardedIndex, {SHARDS} shards, capacity {SHARD_CAPACITY}]: shard "
+              f"{shard_s:.2f} s; exact top-10 = the single-card scan's ({NUM_QUERIES / exact_s:.1f} "
+              f"QPS); staged recall@10 vs the f32 oracle {'; '.join(staged)}", flush=True)
+
+        docs = new_docs(topics, MUT_BATCH, seed=900)
+        info = {}
+        update_or_create(docs, path, update_config=UpdateConfig(), info_out=info, device=device)
+        if info.get("mode") != "buffer":
+            raise AssertionError(f"sharded (b): the 32-doc update ran in mode {info.get('mode')}")
+        encoded = info["encoded"]
+        own = [d[:32] for d in docs]
+        q_check = queries[:64] + own
+        n_q = len(q_check) - MUT_BATCH
+        own_ids = list(range(n0, n0 + MUT_BATCH))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        si2 = si.append_batch(*encoded)
+        si2 = si2.refresh_ivf() if si2 is not None else None
+        torch.cuda.synchronize()
+        append_ms = {"ShardedIndex": 1e3 * (time.perf_counter() - t0)}
+        if si2 is None:
+            raise AssertionError("sharded (b): ShardedIndex.append_batch could not append in place")
+        fresh = ShardedIndex.shard(HostIndexData.load(path), mesh, SHARD_CAPACITY)
+        want = search_batch_sharded(fresh, q_check, exact)
+        gaps.append(assert_same_shard_topk(search_batch_sharded(si2, q_check, exact), want,
+                                           "sharded (b) appended ShardedIndex vs a fresh shard"))
+        p_staged = SearchParameters(top_k=10, mode="staged")
+        r_app = recall_at_10(search_batch_sharded(si2, q_check, p_staged), want)
+        r_fresh = recall_at_10(search_batch_sharded(fresh, q_check, p_staged), want)
+        if r_app < r_fresh - RECALL_SLACK:
+            raise AssertionError(f"sharded (b): staged recall after refresh_ivf {r_app} < "
+                                 f"a fresh shard's {r_fresh} - {RECALL_SLACK}")
+        del fresh, si, si2
+        for dtype, kernel in kernels.items():
+            sg = grids[dtype][0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sg2 = sg.append_batch(*encoded)
+            torch.cuda.synchronize()
+            append_ms[dtype] = 1e3 * (time.perf_counter() - t0)
+            if sg2 is None or sg2.grids[0].data_ptr() != sg.grids[0].data_ptr():
+                raise AssertionError(f"sharded (b): the {dtype} grid was not appended in place")
+            fresh = ShardedGridIndex.shard_grid_only(path, mesh, dtype)
+            take_launches(kernel)
+            got = search_batch_sharded_grid(sg2, q_check, params)
+            out[dtype]["sharded_launches"] += take_launches(kernel)
+            gaps.append(assert_same_shard_topk(
+                got, search_batch_sharded_grid(fresh, q_check, params),
+                f"sharded (b) appended {dtype} grid vs a fresh shard"))
+            take_launches(kernel)
+            if [r.passage_ids[0] for r in got[n_q:]] != own_ids:
+                raise AssertionError(f"sharded (b) {dtype}: a new doc is not its own query's top hit")
+            grids[dtype] = (sg, grids[dtype][1])
+            del fresh, sg2
+        print(f"sharded (b) appends of {MUT_BATCH} docs in place: ShardedIndex + refresh_ivf "
+              f"{append_ms['ShardedIndex']:.2f} ms (exact top-10 = a fresh shard's; staged recall "
+              f"{r_app:.4f}, fresh {r_fresh:.4f}); ShardedGridIndex bf16 {append_ms['bf16']:.2f} ms, "
+              f"int8 {append_ms['int8']:.2f} ms (top-10 = a fresh shard's, every new doc its own "
+              f"query's top hit)", flush=True)
+
+        # (c) sharded k-means on the build's sample, from the build's init.
+        tokens, _ = make_corpus(make_doclens(n0), device)
+        k = num_partitions_heuristic(float(tokens.shape[0]))
+        init = tokens[torch.from_numpy(
+            np.random.default_rng(42).permutation(tokens.shape[0])[:k]).to(device)]
+        diffs, times = {}, {}
+        for iters in (1, 4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single = lloyd(tokens, init, iters=iters,
+                           assign_chunk=assign_chunk_rows(k, floor=512)).cpu().numpy()
+            single_s = time.perf_counter() - t0
+            single /= np.maximum(np.linalg.norm(single, axis=1, keepdims=True), 1e-12)
+            t0 = time.perf_counter()
+            sharded = lloyd_sharded(tokens, init, iters=iters, mesh=mesh)
+            times[iters] = (single_s, time.perf_counter() - t0)
+            gap = np.abs(sharded - single)
+            diffs[iters] = (float(gap.max()), int((gap.max(axis=1) > 1e-4).sum()))
+        del tokens, init
+        if not diffs[1][0] <= LLOYD_ATOL:
+            raise AssertionError(f"sharded (c): one sharded Lloyd iteration is {diffs[1][0]} from "
+                                 f"lloyd's (tolerance {LLOYD_ATOL})")
+        print(f"sharded (c) lloyd_sharded over {SHARDS} shards, K {k}, {make_doclens(n0).sum()} "
+              f"tokens: 1 iteration max |sharded - lloyd| {diffs[1][0]:.3e} (tolerance "
+              f"{LLOYD_ATOL:.0e}), {times[1][1]:.2f} s vs {times[1][0]:.2f} s; 4 iterations (the "
+              f"build's) {diffs[4][0]:.3e}, {diffs[4][1]} of {k} centroids beyond 1e-4 (near-tie "
+              f"reassignments after sums in another order), {times[4][1]:.2f} s vs "
+              f"{times[4][0]:.2f} s", flush=True)
+
+        # (e) several processes on the card.
+        ranks = run_ranks(device, src_path, queries, SHARD_DIR)  # the index of (a)
+        want = grids["bf16"][1]
+        # The backend rule: NCCL when every rank has a card of its own.
+        own_card = "nccl" if device.type == "cuda" else "gloo"
+        for group, backend in (("gloo", "gloo"), ("nccl", own_card)):
+            for r in ranks[group]:
+                if r["backend"] != backend or r["launches"] < r["shards"] // r["world_size"]:
+                    raise AssertionError(f"sharded (e) {group}: rank {r['rank']} ran {r['backend']} "
+                                         f"with {r['launches']} kernel launches")
+                gaps.append(assert_same_shard_topk(
+                    as_results(r["results"]), want,
+                    f"sharded (e) {group} rank {r['rank']} vs in-process"))
+        e_launches = sum(r["launches"] for g in ranks.values() for r in g)
+        out["bf16"]["sharded_launches"] += e_launches
+        walls = {g: ", ".join(f"{r['wall_s']:.3f}" for r in ranks[g]) for g in ranks}
+        print(f"sharded (e): 2 processes x {SHARDS // 2} shards on one card over gloo (each "
+              f"rank's search of {NUM_QUERIES} queries {walls['gloo']} s) and 1 process x {SHARDS} "
+              f"shards over NCCL ({walls['nccl']} s): merged top-10 on every rank = in-process; "
+              f"bf16 kernel launches {e_launches}", flush=True)
+
+        # (f) the service's sharded serve modes.
+        svc_dir = os.path.join(SHARD_DIR, "service")
+        modes = {"sharded": ShardedIndex, "sharded_grid": ShardedGridIndex}
+        for mode in modes:
+            dst = os.path.join(svc_dir, mode)
+            shutil.copytree(path, dst)
+            atomic_write_json(os.path.join(dst, "config.json"),
+                              IndexConfigStored(serve_mode=mode).model_dump())
+        n1 = n0 + MUT_BATCH
+        loaders = {"sharded": (ShardedIndex, "shard", search_batch_sharded),
+                   "sharded_grid": (ShardedGridIndex, "shard_grid_only", search_batch_sharded_grid)}
+        server = ServiceThread(svc_dir, None, device)
+        try:
+            client = NextPlaidClient(server.url, timeout=600)
+            lines = []
+            for mode, (cls, loader, fn) in loaders.items():
+                take_launches(kernels["int8"])
+                body = client.search(mode, queries[:64], top_k=10)
+                served = server.state.served(mode)
+                if not isinstance(served, cls) or served.n_shards != torch.cuda.device_count():
+                    raise AssertionError(f"sharded (f) {mode}: serving {type(served).__name__}")
+                gaps.append(assert_same_shard_topk(
+                    http_results(body), fn(served, queries[:64], params),
+                    f"sharded (f) {mode} over HTTP vs in-process"))
+                out["int8"]["sharded_launches"] += take_launches(kernels["int8"])
+                # Count the reloads the ingest makes, as
+                # tests/test_device_append.py's sharded_grid ingest test does.
+                real, reloads = getattr(cls, loader).__func__, []
+                setattr(cls, loader, classmethod(
+                    lambda c, *a, **kw: reloads.append(1) or real(c, *a, **kw)))
+                try:
+                    docs = new_docs(topics, MUT_BATCH, seed=950)
+                    t0 = time.perf_counter()
+                    client._request("POST", f"/indices/{mode}/documents",
+                                    json={"documents": [_doc_payload(d) for d in docs]})
+                    post_ms = 1e3 * (time.perf_counter() - t0)
+                finally:
+                    setattr(cls, loader, classmethod(real))
+                after = server.state.served(mode)
+                first = (lambda x: x.grids[0]) if cls is ShardedGridIndex else (
+                    lambda x: x.shards[0].codes)
+                if (reloads or after is served or after.num_documents != n1 + MUT_BATCH
+                        or first(after).data_ptr() != first(served).data_ptr()):
+                    raise AssertionError(f"sharded (f) {mode}: the ingest batch was not appended in "
+                                         f"place ({len(reloads)} reloads)")
+                body = client.search(mode, [d[:32] for d in docs], top_k=10)
+                if [r.passage_ids[0] for r in http_results(body)] != list(range(n1, n1 + MUT_BATCH)):
+                    raise AssertionError(f"sharded (f) {mode}: a new doc is not its own query's top hit")
+                out["int8"]["sharded_launches"] += take_launches(kernels["int8"])
+                lines.append(f"{mode} ({type(served).__name__}, {served.n_shards} shard) top-10 = "
+                             f"in-process, /documents of {MUT_BATCH} appended in place in "
+                             f"{post_ms:.1f} ms (0 reloads)")
+        finally:
+            server.stop()
+        print(f"sharded (f) the service: {'; '.join(lines)}; the phase "
+              f"{time.perf_counter() - t_phase:.1f} s; largest score gap of the phase's "
+              f"{len(gaps)} top-10 comparisons {max(gaps):.3e} (bound {SHARD_ATOL:.0e})", flush=True)
+        for dtype in kernels:
+            if not out[dtype]["sharded_launches"]:
+                raise AssertionError(f"the sharded phase launched the {dtype} kernel no time")
+        return out
+    finally:
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
+
+
 def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms, bound_ms, bound_by):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -2840,39 +3349,45 @@ def main() -> int:
     # encoder, a resumed streamed build, load, and search through the bf16
     # kernel.
     encoder = encoder_phase(device, mk)
-    # Phase 8: the eighth slice's path, the REST service on the SciFact index with
+    # Phase 8: the tenth slice's path, doc-range sharding at SciFact scale on
+    # an in-process mesh of four shards on the card (and in three processes).
+    sharded = sharded_phase(device, mk, SERVICE_SRC, topics, queries)
+    # Phase 9: the eighth slice's path, the REST service on the SciFact index with
     # the encoder, over HTTP through the SDK.
     service = service_phase(device, mk, SERVICE_SRC, topics, queries)
-    # Phases 9-10: the ninth slice's paths, the RQ codebook at its own
+    # Phases 10-11: the ninth slice's paths, the RQ codebook at its own
     # operating point, then code search over this checkout.
     rq = rq_phase(device, mk)
     codesearch_phase(device, mk)
-    # Phases 11-12: grid-only int8 serving at scale (with the native merge and
+    # Phases 12-14: grid-only int8 serving at scale (with the native merge and
     # the merge cache on its host load), then the third slice's main path:
-    # staged search over the same corpus's full index.
-    int8, staged = grid_only_phase(device, mk)
+    # staged search over the same corpus's full index, then that corpus as
+    # sharded int8 grids (the sharded phase's (d)).
+    int8, staged, mega = grid_only_phase(device, mk)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # Phase 13: the kernels line, then the device line. The bf16 kernel's
+    # Phase 15: the kernels line, then the device line. The bf16 kernel's
     # launches are the SciFact path's, the staged path's, the mutation
-    # phase's, the encoder phase's, the service phase's and the RQ phase's;
-    # its ms, bound
+    # phase's, the encoder phase's, the service phase's, the RQ phase's and
+    # the sharded phase's (its ranks' too); its ms, bound
     # and plain ms are the SciFact pass's, the staged_* keys the stage-4
     # shape's. The int8 kernel's are the grid-only path's, the mutation
-    # phase's and the service phase's.
+    # phase's, the service phase's and the sharded phase's, (d) included.
     bf16_entry = kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:])
     bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged, **mutation["bf16"],
-                      **encoder, **service["bf16"], **rq)
+                      **encoder, **service["bf16"], **rq, **sharded["bf16"])
     bf16_entry["launches"] += (staged["staged_launches"] + mutation["bf16"]["mutation_launches"]
                                + encoder["encoder_launches"] + service["bf16"]["service_launches"]
-                               + rq["rq_launches"])
+                               + rq["rq_launches"] + sharded["bf16"]["sharded_launches"])
     int8_entry = kernel_entry("maxsim_grid_scores_int8i", "nextplaid_tpu_torch/csrc/maxsim_int8.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:150", *int8)
     int8_entry.update(grid_only_launches=int8_entry["launches"], **mutation["int8"],
-                      **service["int8"])
+                      **service["int8"], **sharded["int8"], **mega)
     int8_entry["launches"] += (mutation["int8"]["mutation_launches"]
-                               + service["int8"]["service_launches"])
+                               + service["int8"]["service_launches"]
+                               + sharded["int8"]["sharded_launches"]
+                               + mega["mega_sharded_launches"])
     print(json.dumps({"kernels": [bf16_entry, int8_entry, variants]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
@@ -2881,4 +3396,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        rank_worker(*sys.argv[2:7])
+        sys.exit(0)
     sys.exit(main())

@@ -118,8 +118,9 @@ class IndexConfigStored(ApiModel):
     # fields): "auto" = DeviceIndex.load + with_token_grid (full serving:
     # staged + exact + O(batch) appends); "grid_only" = load_grid_only
     # (exact-only serving — codes/IVF never on the device; ingest falls back
-    # to mutate-on-disk + reload). "sharded"/"sharded_grid" are the JAX
-    # package's multi-device modes, not ported yet.
+    # to mutate-on-disk + reload). "sharded" / "sharded_grid" = doc-range
+    # shards over the visible cards (ShardedIndex / ShardedGridIndex,
+    # parallel/sharded.py; ingest appends in place where it fits).
     # NEXT_PLAID_SERVE_MODE overrides for all indexes.
     serve_mode: str = "auto"
 

@@ -244,8 +244,6 @@ async def trace_middleware(request: web.Request, handler):
         raise
     except FilteringError as e:
         resp = _json_error(400, str(e))
-    except NotImplementedError as e:  # a serve mode not ported yet
-        resp = _json_error(501, str(e))
     except (KeyError, FileNotFoundError) as e:
         resp = _json_error(404, f"Index not found: {e}")
     except NextPlaidError as e:

@@ -52,6 +52,14 @@ from nextplaid_tpu_torch.index.update import (
     UpdateConfig,
     update_or_create_with_metadata,
 )
+from nextplaid_tpu_torch.parallel import (
+    HostIndexData,
+    ShardedGridIndex,
+    ShardedIndex,
+    make_mesh,
+    search_batch_sharded,
+    search_batch_sharded_grid,
+)
 from nextplaid_tpu_torch.storage.npy import IndexLayout, atomic_write_json, load_json
 from nextplaid_tpu_torch.utils.device import DeviceLike, resolve_device
 from nextplaid_tpu_torch.utils.errors import NextPlaidError
@@ -170,13 +178,16 @@ class _PendingSearch:
 
 
 def search_fn_for(index):
-    """The search function of the served index, with the (index, queries,
-    params, subset) signature. The port serves one DeviceIndex per index
-    (serve_mode auto or grid_only): the JAX package's sharded index types,
-    which take their own functions here, are not ported yet, and their
-    serve modes raise at load (ROADMAP Queue 1, item 5)."""
+    """Dispatch on the served index type: DeviceIndex (serve_mode auto or
+    grid_only), ShardedIndex / ShardedGridIndex (serve_mode sharded /
+    sharded_grid); all share the (index, queries, params, subset)
+    signature."""
     from nextplaid_tpu_torch.index import search_batch
 
+    if isinstance(index, ShardedGridIndex):
+        return search_batch_sharded_grid
+    if isinstance(index, ShardedIndex):
+        return search_batch_sharded
     return search_batch
 
 
@@ -276,7 +287,8 @@ class AppState:
     def _load_index_sync(self, name: str) -> DeviceIndex:
         """Serving load: full index + pinned grid by default; exact-only
         grid streaming when serve_mode (config.json or
-        NEXT_PLAID_SERVE_MODE) is "grid_only"."""
+        NEXT_PLAID_SERVE_MODE) is "grid_only"; doc-range shards over the
+        mesh when it is "sharded" (compressed) or "sharded_grid"."""
         mode = os.environ.get(
             "NEXT_PLAID_SERVE_MODE", self.get_config(name).serve_mode
         )
@@ -290,9 +302,33 @@ class AppState:
                 "'sharded', or 'sharded_grid'"
             )
         if mode in ("sharded", "sharded_grid"):
-            raise NotImplementedError(
-                f"serve_mode={mode!r} (doc-range shards over several cards) "
-                "is not ported yet: ROADMAP Queue 1, item 5"
+            # Doc-range shards over the mesh (parallel/sharded.py).
+            # Mutations are storage-is-the-truth: ingest appends in place
+            # where it can, else invalidates and the next get_index
+            # re-shards.
+            mesh = self._mesh()
+            if mode == "sharded_grid":
+                dtype = os.environ.get("NEXT_PLAID_PIN_DTYPE", "int8")
+                if dtype not in ("bf16", "int8"):
+                    # Same loud coercion as the grid_only branch below.
+                    logger.warning(
+                        "NEXT_PLAID_PIN_DTYPE=%r is not valid for "
+                        "serve_mode=sharded_grid (bf16|int8); using int8 "
+                        "— exact scores are int8-quantized",
+                        dtype,
+                    )
+                    dtype = "int8"
+                return ShardedGridIndex.shard_grid_only(
+                    str(self.index_path(name)), mesh, dtype
+                )
+            # Disk -> host -> shards: the corpus never transits a single
+            # device. capacity_factor reserves per-shard slack so ingest
+            # appends in place.
+            return ShardedIndex.shard(
+                HostIndexData.load(str(self.index_path(name))), mesh,
+                capacity_factor=float(
+                    os.environ.get("NEXT_PLAID_SHARD_CAPACITY_FACTOR", "1.5")
+                ),
             )
         if mode == "grid_only":
             from nextplaid_tpu_torch.index.container import load_grid_only
@@ -323,6 +359,13 @@ class AppState:
             grid_aware_capacity=True,
             device=self.device,
         ).with_token_grid()
+
+    def _mesh(self):
+        """The mesh of the sharded serve modes: one shard a visible card, or
+        one shard on the state's device when that is not a card."""
+        if self.device.type == "cuda":
+            return make_mesh()
+        return make_mesh(devices=[self.device])
 
     def process_lock(self, name: str) -> asyncio.Lock:
         """The lock an index's ingest and delete batches hold while they
@@ -713,15 +756,17 @@ class AppState:
         appended = self._try_device_append(name, info, evicted)
         if not appended:
             served = self._indices.get(name)
-            if served is not None and served.grid_only:
-                # Grid-only: invalidate instead of eager reload. An eager
-                # reload would build the NEW grid while the old one is
-                # still registered — two near-device-sized residencies
-                # can't coexist at the scale this mode targets. Dropping
-                # the slot frees the old as in-flight searches drain; the
-                # next get_index (under its per-index load lock) rebuilds
-                # lazily, and coalesced ingest batches pay that load once
-                # per quiet period instead of per batch.
+            if served is not None and (
+                not isinstance(served, DeviceIndex) or served.grid_only
+            ):
+                # Grid-only / sharded: invalidate instead of eager reload.
+                # An eager reload would build the NEW grid or shards while
+                # the old ones are still registered — two near-device-sized
+                # residencies can't coexist at the scale these modes
+                # target. Dropping the slot frees the old as in-flight
+                # searches drain; the next get_index (under its per-index
+                # load lock) rebuilds lazily, and coalesced ingest batches
+                # pay that load once per quiet period instead of per batch.
                 self._indices.pop(name, None)
             else:
                 self.register(name, self._load_index_sync(name))
@@ -749,6 +794,21 @@ class AppState:
         ):
             return False
         codes, residuals, doclens = encoded
+        if isinstance(served, (ShardedIndex, ShardedGridIndex)):
+            # Sharded: O(batch) writes into the tail shard's slack (the
+            # grid spills into empty successors); the staged index then
+            # refreshes one shard's IVF. None falls back to the reload.
+            try:
+                appended = served.append_batch(codes, residuals, doclens)
+                if isinstance(appended, ShardedIndex):
+                    appended = appended.refresh_ivf()
+            except Exception:
+                logger.exception("sharded append failed; falling back to reload")
+                return False
+            if appended is None:
+                return False
+            self.register(name, appended)
+            return True
         if served.grid_only:
             # Grid-only serving: immutable on the device; mutate on disk +
             # lazy reload.

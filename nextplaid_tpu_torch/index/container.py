@@ -435,23 +435,12 @@ class DeviceIndex:
         )
 
         if index.token_grid is not None:
-            td = index.token_grid.shape[1]
             starts = torch.zeros(bdocs, dtype=torch.int64, device=dev)
             starts[1:] = torch.cumsum(lens[:-1], 0)
-            t_ar = torch.arange(td, device=dev)
-            for s in range(0, bdocs, GRID_BUILD_TILE):
-                sl = slice(s, s + GRID_BUILD_TILE)
-                emb = decompress_windows(
-                    new_codes, new_res, starts[sl], lens[sl], td,
-                    index.centroids, index.bucket_weights, index.nbits,
-                )
-                rows = slice(nd + s, nd + s + emb.shape[0])
-                if index.token_scales is None:
-                    index.token_grid[rows] = emb.to(torch.bfloat16)
-                else:
-                    q, sc = quantize_tokens_int8(emb, t_ar[None, :] < lens[sl, None])
-                    index.token_grid[rows] = q
-                    index.token_scales[rows] = sc
+            write_grid_rows(
+                index.token_grid, index.token_scales, new_codes, new_res, starts,
+                lens, nd, index.centroids, index.bucket_weights, index.nbits,
+            )
         out = dataclasses.replace(
             index,
             n_docs=nd + bdocs,
@@ -502,6 +491,11 @@ class DeviceIndex:
                 )
         return grown
 
+    def mark_ivf_stale(self) -> None:
+        """Mark the IVF as missing documents (as `append_batch` does): the
+        staged route reroutes to exhaustive search until `refresh_ivf`."""
+        self.ivf_stale = True
+
     def refresh_ivf(self, index_path: str) -> "DeviceIndex":
         """The index with its IVF (and posting statistics) re-read from disk:
         the staged pipeline's catch-up after appends. The result is no longer
@@ -550,13 +544,16 @@ class DeviceIndex:
         device: DeviceLike = None,
         rq_coarse: Optional[np.ndarray] = None,
         rq_fine: Optional[np.ndarray] = None,
+        ivf_capacity: int = 0,
     ) -> "DeviceIndex":
         """Pad host arrays as the JAX package does and stage them on
         `device` ("cuda" when None). `doc_capacity` / `token_capacity`
         reserve rows past the live counts that `append_batch` fills in
-        place. At 0 (the default) the shapes are the live counts padded.
-        `rq_coarse` / `rq_fine` carry an RQ index's factored codebook; its
-        inv norms are derived here."""
+        place, `ivf_capacity` posting slots that an in-place IVF refresh
+        fills (the sharded staged append, `parallel/sharded.py`). At 0 (the
+        default) the shapes are the live counts padded. `rq_coarse` /
+        `rq_fine` carry an RQ index's factored codebook; its inv norms are
+        derived here."""
         device = resolve_device(device)
         ndocs = int(doclens.shape[0])
         nvec = int(codes.shape[0])
@@ -571,7 +568,7 @@ class DeviceIndex:
         ndocs_pad = _padded_doc_rows(ndocs, doc_capacity)
         nvec_pad = max(_round_up(max(nvec, token_capacity), PAD_TOKENS), PAD_TOKENS)
         nnz = int(ivf_doc_ids.shape[0])
-        nnz_pad = max(_round_up(nnz, PAD_TOKENS), PAD_TOKENS)
+        nnz_pad = max(_round_up(max(nnz, ivf_capacity), PAD_TOKENS), PAD_TOKENS)
 
         doclens_p = np.zeros(ndocs_pad, np.int32)
         doclens_p[:ndocs] = doclens
@@ -947,6 +944,39 @@ def quantize_tokens_int8(
     q = torch.clamp(torch.round(emb / scale[..., None]), -127, 127).to(torch.int8)
     stored = torch.where(valid, scale, torch.zeros_like(scale)).to(torch.bfloat16)
     return q, stored
+
+
+def write_grid_rows(
+    grid: torch.Tensor,
+    scales: Optional[torch.Tensor],
+    codes: torch.Tensor,
+    residuals: torch.Tensor,
+    starts: torch.Tensor,
+    lens: torch.Tensor,
+    row0: int,
+    centroids: torch.Tensor,
+    bucket_weights: torch.Tensor,
+    nbits: int,
+) -> None:
+    """Decompress docs into rows row0, row0 + 1, ... of a doc-major grid
+    [rows, Td, d], in place: doc i is the token window starts[i] + [0,
+    lens[i]) of `codes` / `residuals`. bf16 rows when `scales` is None,
+    else int8 rows quantized by `quantize_tokens_int8` with their scales
+    written to `scales` [rows, Td]. GRID_BUILD_TILE docs a step."""
+    td = grid.shape[1]
+    t_ar = torch.arange(td, device=grid.device)
+    for s in range(0, lens.shape[0], GRID_BUILD_TILE):
+        sl = slice(s, s + GRID_BUILD_TILE)
+        emb = decompress_windows(
+            codes, residuals, starts[sl], lens[sl], td, centroids, bucket_weights, nbits
+        )
+        rows = slice(row0 + s, row0 + s + emb.shape[0])
+        if scales is None:
+            grid[rows] = emb.to(torch.bfloat16)
+        else:
+            q, sc = quantize_tokens_int8(emb, t_ar[None, :] < lens[sl, None])
+            grid[rows] = q
+            scales[rows] = sc
 
 
 def int8_grid_from_interleaved(
@@ -1340,24 +1370,15 @@ def load_grid_only(
         offs = np.zeros(len(dl), np.int64)
         np.cumsum(dl[:-1], out=offs[1:])
         in_chunk = bucket_of[doc0 : doc0 + len(dl)]
-        for b, td in enumerate(tds):
+        for b in range(len(tds)):
             local = np.nonzero(in_chunk == b)[0]
-            for s in range(0, len(local), GRID_BUILD_TILE):
-                sel = local[s : s + GRID_BUILD_TILE]
-                lens = torch.from_numpy(dl[sel]).to(device)
-                emb = decompress_windows(
-                    codes_c, res_c, torch.from_numpy(offs[sel]).to(device), lens,
-                    td, centroids, weights, meta.nbits,
-                )
-                r0 = rows_written[b]
-                if dtype == "int8":
-                    valid = torch.arange(td, device=device)[None, :] < lens[:, None]
-                    q, sc = quantize_tokens_int8(emb, valid)
-                    grids[b][r0 : r0 + len(sel)] = q
-                    scale_grids[b][r0 : r0 + len(sel)] = sc
-                else:
-                    grids[b][r0 : r0 + len(sel)] = emb.to(torch.bfloat16)
-                rows_written[b] += len(sel)
+            write_grid_rows(
+                grids[b], scale_grids[b] if scale_grids else None, codes_c, res_c,
+                torch.from_numpy(offs[local]).to(device),
+                torch.from_numpy(dl[local]).to(device), rows_written[b],
+                centroids, weights, meta.nbits,
+            )
+            rows_written[b] += len(local)
         tok0 += codes_c.shape[0]
         doc0 += len(dl)
         del codes_c, res_c

@@ -16,8 +16,12 @@ Three parts:
    k-means carried across), and `/encode` of the port's `Colbert` (f32, the
    JAX weights carried by `params_from_jax`) equals the JAX one within 1e-5.
 3. The port's own behaviour: the in-place append of a served index, the
-   sharded serve modes refused with 501, the kernels built at server start
-   on a card, and the refusal to start without one.
+   kernels built at server start on a card, and the refusal to start
+   without one. The sharded serve modes run through the reference's own
+   tests (`test_sharded_serve_modes`, `test_sharded_staged_append_in_place`
+   and `tests/test_device_append.py::test_api_ingest_uses_sharded_grid_append`),
+   the service's mesh made eight CPU shards by the `cpu_mesh8` fixture, as
+   the JAX tests' eight virtual CPU devices.
 """
 
 import ast
@@ -99,19 +103,41 @@ _api = port_battery(
      'create_index(docs, str(tmp_path / "coal2"), IndexConfig(nbits=4, seed=0), device="cpu")'),
     ("st = state_mod.AppState(str(tmp_path))",
      "st = state_mod.AppState(str(tmp_path), device='cpu')", ),
+    # The sharded serve modes shard over eight CPU shards.
+    ("def test_sharded_serve_modes(server, mode):",
+     "def test_sharded_serve_modes(server, mode, cpu_mesh8):"),
+    ("def test_sharded_staged_append_in_place(server, monkeypatch):",
+     "def test_sharded_staged_append_in_place(server, monkeypatch, cpu_mesh8):"),
 )
 _units = port_battery("test_api_units")
+# Only its serve_mode=sharded_grid ingest test is the service's; the module's
+# top-level `import jax.numpy` goes (the other tests, which use it, are the
+# device append's, run against the port in tests/test_torch_append.py).
+_device_append = port_battery(
+    "test_device_append",
+    ("import jax.numpy as jnp\n", ""),
+    ('state = AppState(str(tmp_path / "apidx_sg"))',
+     'state = AppState(str(tmp_path / "apidx_sg"), device="cpu")'),
+    ("def test_api_ingest_uses_sharded_grid_append(tmp_path, monkeypatch):",
+     "def test_api_ingest_uses_sharded_grid_append(tmp_path, monkeypatch, cpu_mesh8):"),
+)
+test_api_ingest_uses_sharded_grid_append = _device_append.test_api_ingest_uses_sharded_grid_append
 
 ServerThread = _api.ServerThread
 make_docs = _api.make_docs
 doc_payload = _api.doc_payload
 server = _api.server
+
+
+@pytest.fixture
+def cpu_mesh8(monkeypatch):
+    """The service's sharded serve modes over eight CPU shards."""
+    from nextplaid_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(port_state.AppState, "_mesh", lambda self: make_mesh(devices=["cpu"] * 8))
 enc_server = _api.enc_server
 
-# Every test of tests/test_api.py but the three of serve_mode "sharded" and
-# "sharded_grid" (the JAX package's multi-device serving, not ported yet:
-# ROADMAP Queue 1, item 5), which `test_sharded_serve_modes_not_ported` and
-# `test_auto_serve_mode_appends_in_place` below adapt.
+# Every test of tests/test_api.py.
 API_TESTS = (
     "test_health", "test_request_id_propagation", "test_index_lifecycle",
     "test_update_endpoint_sync", "test_max_documents_eviction",
@@ -125,8 +151,9 @@ API_TESTS = (
     "test_search_coalescing_merges_and_slices",
     "test_search_coalescing_distinct_params_not_merged",
     "test_concurrent_searches_over_http", "test_bf16_wire_search",
+    "test_sharded_serve_modes", "test_sharded_staged_append_in_place",
 )
-API_LEFT_OUT = ("test_sharded_serve_modes", "test_sharded_staged_append_in_place")
+API_LEFT_OUT = ()
 UNITS_TESTS = tuple(n for n in dir(_units) if n.startswith("test_"))
 for _name in API_TESTS:
     globals()[_name] = getattr(_api, _name)
@@ -507,21 +534,6 @@ def test_auto_serve_mode_appends_in_place(server, monkeypatch):
         r = requests.post(server.url + f"/indices/{name}/search",
                           json={"queries": _b64([q2]), "params": {"top_k": 5}})
         assert r.json()["results"][0]["document_ids"][0] == doc_id
-
-
-@pytest.mark.parametrize("mode", ["sharded", "sharded_grid"])
-def test_sharded_serve_modes_not_ported(server, monkeypatch, mode):
-    """Adapts test_sharded_serve_modes: the multi-device serve modes are not
-    ported yet. Loading an index under them (the reload after an ingest,
-    the first search) answers 501 and names the ROADMAP item."""
-    name = f"srv_{mode}"
-    monkeypatch.setenv("NEXT_PLAID_SERVE_MODE", mode)
-    docs = make_docs(8, seed=21)
-    r = requests.post(server.url + f"/indices/{name}/update", json={"documents": _b64(docs)})
-    assert r.status_code == 501 and "ROADMAP Queue 1, item 5" in r.json()["error"], r.text
-    r = requests.post(server.url + f"/indices/{name}/search",
-                      json={"queries": _b64([docs[0][:4]]), "params": {"top_k": 2}})
-    assert r.status_code == 501 and mode in r.json()["error"], r.text
 
 
 def test_kernels_load_before_requests_on_a_card(tmp_path, monkeypatch):

@@ -56,6 +56,8 @@ def test_import_leaves_jax_out():
         "nextplaid_tpu_torch.client, nextplaid_tpu_torch.client.cli, "
         "nextplaid_tpu_torch.eval, nextplaid_tpu_torch.scripts_export, "
         "nextplaid_tpu_torch.ops.rq, nextplaid_tpu_torch.codesearch, "
+        "nextplaid_tpu_torch.parallel, nextplaid_tpu_torch.parallel.mesh, "
+        "nextplaid_tpu_torch.parallel.sharded, "
         + ", ".join(f"nextplaid_tpu_torch.codesearch.{m}" for m in CODESEARCH_MODULES)
         + "\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'nextplaid_tpu') or "
