@@ -105,6 +105,18 @@ port's paths:
      search in process and a /documents batch appended in place (no
      reload). Its (d) runs after phase 5: the megascale index as 4 int8 grid
      shards, unrefined top-10 against phase 4's, recall@10.
+  12. the entry points outside the package (this slice's path), last:
+     `nextplaid_tpu_torch.entry.entry()`'s staged step against
+     `search_batch` (a), `dryrun_multichip(4)` on 4 shards of the card
+     ending in its `DRYRUN VERIFIED:` line (b), then the scripts as a user
+     runs them, each a child process with --device cuda whose JSON is read:
+     scripts/eval_torch_recall.py on phase 2's index (c, exact bf16 recall@10
+     >= 0.99), and at once scripts/eval_torch_beir.py --smoke in local and
+     api modes and scripts/fetch_torch_eval_assets.py --offline (d, their
+     gates), scripts/eval_torch_codesearch.py --smoke (e) and
+     scripts/run_torch_stress_acceptance.py 12 (f). The children print their
+     kernel launches, which the kernels line adds. Each kernel is held
+     against its plain version at the arguments (a)-(d) give it.
   Phases 9 and 10 run after phase 8 and before phases 4-5 (grid-only and
   staged serving at megascale), whose build needs the most memory.
 The megascale path also loads its host arrays twice with the merge cache
@@ -128,6 +140,7 @@ import gc
 import json
 import logging
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -745,7 +758,8 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
               f"({bound_by}; {100 * bound_ms / kernel_ms:.1f}% of it; tile waste {100 * waste:.1f}%), top-{depth} finalize "
               f"{finalize_ms:.3f} ms, refine {refine_ms:.3f} ms; plain version {plain_ms:.3f} ms; "
               f"kernel launches {launches}", flush=True)
-        del go, grids, scales, blocks, cand, perms
+        # Each PendingSearch keeps its index: release them with it.
+        del go, grids, scales, blocks, cand, perms, pending, out
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1048,6 +1062,43 @@ def assert_same_topk(got, want, tol, label, atol=None):
     return gap
 
 
+def stage4_kernel_args(index, queries, qmask, shapes):
+    """The bf16 kernel's arguments at stage 4 of `search_pipeline` on a
+    flat-centroid index: stages 1-3 as the pipeline runs them, then its
+    union grid and its masked bf16 queries. Returns (args, docs in the
+    union)."""
+    from nextplaid_tpu_torch.index import search as S
+
+    q_n, tq, d = queries.shape
+    k = index.num_centroids
+    q_in, cent = queries.float(), index.centroids
+    if shapes.stage1_precision != "highest":
+        q_in, cent = q_in.to(torch.bfloat16).float(), cent.to(torch.bfloat16).float()
+    s_masked = (q_in.reshape(-1, d) @ cent.T).view(q_n, tq, k).masked_fill(
+        ~qmask[:, :, None], float("-inf"))
+    cells, weights = S._dedup_cells(*S._select_cells(s_masked, qmask, shapes, k), k)
+    union_ids, _, _ = S._prune_candidates(index, cells, weights, shapes, s_masked=s_masked,
+                                          qmask=qmask, queries=queries)
+    del s_masked
+    grid, doclens = S._build_union_grid(index, union_ids, shapes)
+    qflat = torch.where(qmask[:, :, None], queries.float(), torch.zeros((), device=grid.device))
+    args = (qflat.reshape(q_n * tq, d).to(torch.bfloat16), grid, doclens, tq)
+    return args, int((union_ids < index.num_documents).sum())
+
+
+def exact_grid_args(index, queries):
+    """The bf16 kernel's arguments of the exact search over `index`'s pinned
+    bf16 grid for the query list `queries`, padded as `search_batch` pads
+    them."""
+    from nextplaid_tpu_torch.index.search import _pad_queries
+
+    q_arr, _ = _pad_queries(queries, index.dim)
+    q_dev = torch.from_numpy(q_arr.reshape(-1, index.dim)).to(index.device, torch.bfloat16)
+    lens = torch.zeros(index.token_grid.shape[0], dtype=torch.int32, device=index.device)
+    lens[: index.num_docs_padded] = index.doclens
+    return q_dev, index.token_grid, lens, q_arr.shape[1]
+
+
 def staged_phase(full, device, mk, batches, queries, oracle):
     """This slice's main path at full width: staged PLAID search over the
     full 473,000-doc index, stage 4 through the bf16 MaxSim kernel. Returns
@@ -1134,19 +1185,8 @@ def staged_phase(full, device, mk, batches, queries, oracle):
     label, kw, _ = STAGED_POINTS[1]
     params = SearchParameters(**STAGED_COMMON, **kw)
     shapes = S.PipelineShapes.derive(full, params, MEGA_BATCH, q_arr.shape[1])
-    k = full.num_centroids
-    s_raw = (q_dev.to(torch.bfloat16).float().reshape(-1, full.dim)
-             @ full.centroids.to(torch.bfloat16).float().T).view(MEGA_BATCH, -1, k)
-    s_masked = s_raw.masked_fill(~m_dev[:, :, None], float("-inf"))
-    cells, weights = S._dedup_cells(*S._select_cells(s_masked, m_dev, shapes, k), k)
-    union_ids, _, _ = S._prune_candidates(full, cells, weights, shapes, s_masked=s_masked,
-                                          qmask=m_dev, queries=q_dev)
-    del s_raw, s_masked
-    n_union = int((union_ids < full.num_documents).sum())
-    grid, doclens = S._build_union_grid(full, union_ids, shapes)
-    tq = q_arr.shape[1]
-    qflat = q_dev.reshape(-1, full.dim).to(torch.bfloat16)
-    args = (qflat, grid, doclens, tq)
+    args, n_union = stage4_kernel_args(full, q_dev, m_dev, shapes)
+    _, grid, doclens, _ = args
     max_err = check_kernel(kernel, mk.maxsim_grid_scores_reference, args,
                            f"stage-4 union grid {tuple(grid.shape)}, {MEGA_BATCH}q")
     kernel_ms = time_ms(lambda: kernel(*args), reps=5)
@@ -1822,58 +1862,6 @@ SVC_STAGE_REPS = 20  # runs of each stage of one request, split by stage
 SVC_RTOL = 1e-4
 
 
-class ServiceThread:
-    """The port's server in this process: `build_app` run by aiohttp on its
-    own event loop in a thread, on 127.0.0.1 at a free port."""
-
-    def __init__(self, index_dir, encoder, device):
-        import asyncio
-        import threading
-
-        from aiohttp import web
-
-        from nextplaid_tpu_torch.api.server import build_app
-
-        self.app = build_app(index_dir, encoder=encoder, device=device)
-        self.loop = asyncio.new_event_loop()
-        started, failed = threading.Event(), []
-
-        def run():
-            asyncio.set_event_loop(self.loop)
-            runner = web.AppRunner(self.app)
-            try:
-                self.loop.run_until_complete(runner.setup())
-                self.loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", 0).start())
-                self.port = runner.addresses[0][1]
-            except BaseException as e:  # reported by __init__
-                failed.append(e)
-                started.set()
-                return
-            started.set()
-            self.loop.run_forever()
-            self.loop.run_until_complete(runner.cleanup())
-            self.loop.close()
-
-        self.thread = threading.Thread(target=run, daemon=True)
-        self.thread.start()
-        if not started.wait(600) or failed:
-            raise AssertionError(f"the server did not start: {failed}")
-
-    @property
-    def url(self):
-        return f"http://127.0.0.1:{self.port}"
-
-    @property
-    def state(self):
-        return self.app["state"]
-
-    def stop(self):
-        self.loop.call_soon_threadsafe(self.loop.stop)
-        self.thread.join(timeout=120)
-        if self.thread.is_alive():
-            raise AssertionError("the server thread did not stop")
-
-
 def http_results(body):
     """A /search response's results as objects with passage_ids and scores."""
     import types
@@ -2015,11 +2003,12 @@ def service_phase(device, mk, src_path, topics, queries, widths=GTE_WIDTHS):
     serve_mode grid_only (the int8 kernel) on a copy, (h) one request split
     by stage; then (g) the server as a subprocess, stopped by SIGTERM. Each
     answer is held against the same call in process, and each kernel
-    against its plain version at a request's shapes. Removes `src_path`
-    when done. Returns the two kernels' launches in the phase and their
-    largest differences from the plain versions."""
+    against its plain version at a request's shapes. Returns the two
+    kernels' launches in the phase and their largest differences from the
+    plain versions."""
     from nextplaid_tpu_torch import filtering
     from nextplaid_tpu_torch.api import state as port_state
+    from nextplaid_tpu_torch.api.inprocess import InProcessServer
     from nextplaid_tpu_torch.api.models import IndexConfigStored
     from nextplaid_tpu_torch.client import NextPlaidClient
     from nextplaid_tpu_torch.client.client import _doc_payload
@@ -2086,7 +2075,7 @@ def service_phase(device, mk, src_path, topics, queries, widths=GTE_WIDTHS):
         setup_s = time.perf_counter() - t_phase
 
         t0 = time.perf_counter()
-        server = ServiceThread(index_dir, enc, device)
+        server = InProcessServer(index_dir, enc, device)
         start_s = time.perf_counter() - t0
         client = NextPlaidClient(server.url, timeout=600)
         launches = {}
@@ -2369,7 +2358,6 @@ def service_phase(device, mk, src_path, topics, queries, widths=GTE_WIDTHS):
                 "int8": {"service_launches": launches["f"], "service_max_abs_err": err8}}
     finally:
         shutil.rmtree(SERVICE_DIR, ignore_errors=True)
-        shutil.rmtree(src_path, ignore_errors=True)
 
 
 # RQ phase: the residual-quantized codebook at its own operating point,
@@ -2985,6 +2973,7 @@ def sharded_phase(device, mk, src_path, topics, queries):
     k-means sample; (e) the grid over two processes x 2 shards (gloo) and
     one process x 4 shards (NCCL); (f) the service's serve modes "sharded"
     and "sharded_grid". Returns the two kernels' numbers of the phase."""
+    from nextplaid_tpu_torch.api.inprocess import InProcessServer
     from nextplaid_tpu_torch.api.models import IndexConfigStored
     from nextplaid_tpu_torch.client import NextPlaidClient
     from nextplaid_tpu_torch.client.client import _doc_payload
@@ -3224,7 +3213,7 @@ def sharded_phase(device, mk, src_path, topics, queries):
         n1 = n0 + MUT_BATCH
         loaders = {"sharded": (ShardedIndex, "shard", search_batch_sharded),
                    "sharded_grid": (ShardedGridIndex, "shard_grid_only", search_batch_sharded_grid)}
-        server = ServiceThread(svc_dir, None, device)
+        server = InProcessServer(svc_dir, None, device)
         try:
             client = NextPlaidClient(server.url, timeout=600)
             lines = []
@@ -3276,6 +3265,258 @@ def sharded_phase(device, mk, src_path, topics, queries):
         return out
     finally:
         shutil.rmtree(SHARD_DIR, ignore_errors=True)
+
+
+# Harness phase: the entry points outside the package, each run as a user
+# runs it. (a) and (b) run in this process; (c)-(f) are the scripts under
+# scripts/, each a child process with --device cuda whose JSON is parsed.
+HARNESS_DIR = os.path.join(ROOT, "build", "chip_smoke_harness")
+HARNESS_TIMEOUT_S = 240
+ENTRY_TOL = 1e-4  # the same pipeline on the same inputs: equal up to f32 sum order
+STRESS_CYCLES = 12
+
+
+def start_script(name, *args, env=None):
+    """scripts/<name> with --device cuda, as a child process."""
+    return subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "scripts", name), "--device", "cuda", *args],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+
+def finish_script(proc, name, t0):
+    """Waits for `proc`; fails on a non-zero exit. Returns (its JSON lines,
+    its wall seconds from `t0`)."""
+    try:
+        out, err = proc.communicate(timeout=HARNESS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"harness: {name} outlived {HARNESS_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"harness: {name} exited {proc.returncode}: {err[-3000:]}")
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")], wall
+
+
+def harness_phase(device, mk, smi, topics):
+    """(a) `entry()`'s staged step against `search_batch`; (b)
+    `dryrun_multichip(4)` on 4 shards of the card; (c) scripts/eval_torch_recall.py
+    on the SciFact index of the earlier phases (SERVICE_SRC as BENCH_IDX);
+    then, as five concurrent processes, (d) scripts/eval_torch_beir.py
+    --smoke in local and api modes and scripts/fetch_torch_eval_assets.py
+    --offline, (e) scripts/eval_torch_codesearch.py --smoke and (f)
+    scripts/run_torch_stress_acceptance.py. Each kernel is held against its
+    plain version at the arguments (a)-(d) give it: (a)'s stage 4, (b)'s
+    int8 grid shards, (c)'s exact grid and largest staged union, (d)'s
+    smoke grid (rebuilt here from the script's corpus and encoder). Returns
+    the two kernels' launches of (a)-(d), this process's counts and the
+    children's, and their largest differences from the plain versions."""
+    from nextplaid_tpu_torch.entry import dryrun_multichip, entry
+    from nextplaid_tpu_torch.index import (
+        DeviceIndex, IndexConfig, QueryResult, SearchParameters, create_index, search_batch,
+    )
+    from nextplaid_tpu_torch.index import search as S
+    from nextplaid_tpu_torch.index.exact import quantize_queries_int8
+
+    t_phase = time.perf_counter()
+    kernels = {"bf16": mk.maxsim_grid_scores, "int8": mk.maxsim_grid_scores_int8i}
+    plains = {"bf16": mk.maxsim_grid_scores_reference,
+              "int8": mk.maxsim_grid_scores_int8i_reference}
+    launches = {"bf16": 0, "int8": 0}
+    errs = {"bf16": [], "int8": []}
+
+    def check(dtype, args, label):
+        errs[dtype].append(check_kernel(kernels[dtype], plains[dtype], args, f"harness {label}"))
+        take_launches(kernels[dtype])  # comparison launches: not the path's
+
+    procs = {}
+    shutil.rmtree(HARNESS_DIR, ignore_errors=True)
+    os.makedirs(HARNESS_DIR)
+    try:
+        # (a) The staged step as entry() gives it, and with the centroid
+        # threshold off: at the default 0.4 the example queries (random unit
+        # rows) select no cell, so the step returns no hit, as the JAX one.
+        for k in kernels.values():
+            take_launches(k)
+        fn, args = entry(device, path=os.path.join(HARNESS_DIR, "entry_idx"))
+        index, queries, qmask = args
+        valid = [q[m].cpu().numpy() for q, m in zip(queries, qmask)]
+        lines, steps = [], 0
+        for threshold in (0.4, None):
+            shapes = dataclasses.replace(fn.keywords["shapes"], threshold=threshold)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, scores, _ = fn.func(*args, subset_mask=None, shapes=shapes)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0)
+            steps += 1
+            ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+            got = [QueryResult(i, [int(x) for x in row[row >= 0]], [float(s) for s in srow[row >= 0]])
+                   for i, (row, srow) in enumerate(zip(ids, scores))]
+            want = search_batch(index, valid, SearchParameters(
+                top_k=5, n_full_scores=64, mode="staged", centroid_score_threshold=threshold))
+            gap = assert_same_topk(got, want, ENTRY_TOL, f"harness (a) threshold {threshold}")
+            hits = sum(len(r.passage_ids) for r in got)
+            if threshold is None and hits != 5 * len(got):
+                raise AssertionError(f"harness (a): {hits} hits without the threshold")
+            lines.append(f"threshold {threshold}: {hits} hits, step {step_ms:.2f} ms, largest "
+                         f"score gap {gap:.3e}")
+        a_launches = {dt: take_launches(k) for dt, k in kernels.items()}
+        if a_launches["bf16"] < steps:
+            raise AssertionError(f"harness (a): stage 4 launched the bf16 kernel "
+                                 f"{a_launches['bf16']} times in {2 * steps} staged batches")
+        print(f"harness (a) entry(): staged step = search_batch (tie rule, tolerance {ENTRY_TOL}); "
+              f"{'; '.join(lines)}; kernel launches {a_launches}", flush=True)
+        for threshold in (0.4, None):
+            shapes = dataclasses.replace(fn.keywords["shapes"], threshold=threshold)
+            s4, n_union = stage4_kernel_args(index, queries, qmask, shapes)
+            check("bf16", s4, f"(a) stage 4, threshold {threshold}: union {n_union} docs, grid "
+                              f"{tuple(s4[1].shape)}, {queries.shape[0]}q x {s4[3]} tokens")
+
+        # (b) The multi-device dry run on 4 shards of the card.
+        t0 = time.perf_counter()
+        grid_in = {}
+        summary = dryrun_multichip(SHARDS, device, workdir=HARNESS_DIR, grid_out=grid_in)
+        dry_s = time.perf_counter() - t0
+        flags = dict(re.findall(r"(\S+)=(\[[^\]]*\]|True|False|\d+)", summary))
+        if not summary.startswith("DRYRUN VERIFIED:") or "False" in flags.values() or len(flags) != 10:
+            raise AssertionError(f"harness (b): {summary}")
+        b_launches = {dt: take_launches(k) for dt, k in kernels.items()}
+        if b_launches["int8"] < SHARDS:
+            raise AssertionError(f"harness (b): the int8 grid shards launched {b_launches['int8']}")
+        print(f"harness (b) dryrun_multichip({SHARDS}): {dry_s:.2f} s; kernel launches "
+              f"{b_launches}", flush=True)
+        sg = grid_in["sg"]
+        q_arr, _ = S._pad_queries(grid_in["queries"], sg.dim)
+        for i, grid in enumerate(sg.grids):
+            qi8, qs = quantize_queries_int8(torch.from_numpy(q_arr.reshape(-1, sg.dim)).to(grid.device))
+            check("int8", (qi8, qs, grid, sg.scales[i], q_arr.shape[1]),
+                  f"(b) int8 grid shard {i}: {q_arr.shape[0]}q x {q_arr.shape[1]} tokens over "
+                  f"{tuple(grid.shape)}")
+        del sg, grid_in
+
+        # (c) The recall sweep on the SciFact index, alone on the card. The
+        # script builds its corpus anew when BENCH_IDX holds no index.
+        if not os.path.exists(os.path.join(SERVICE_SRC, "metadata.json")):
+            raise AssertionError(f"harness (c): no SciFact index at {SERVICE_SRC} to reuse")
+        t0 = time.perf_counter()
+        proc = procs["recall"] = start_script("eval_torch_recall.py",
+                                              env=dict(os.environ, BENCH_IDX=SERVICE_SRC))
+        sweep, wall = finish_script(proc, "eval_torch_recall.py", t0)
+        configs = [ln["config"] for ln in sweep]
+        if len(sweep) != 6 or not configs[0].startswith("exact bf16"):
+            raise AssertionError(f"harness (c): {configs}")
+        if sweep[0]["recall_at_10"] < MIN_RECALL:
+            raise AssertionError(f"harness (c): exact bf16 recall@10 {sweep[0]['recall_at_10']} "
+                                 f"< {MIN_RECALL}")
+        c_launches = {dt: sum(ln["launches"][dt] for ln in sweep) for dt in kernels}
+        if any(ln["timed_launches"]["bf16"] < 3 for ln in sweep):
+            raise AssertionError(f"harness (c): bf16 launches {[ln['timed_launches'] for ln in sweep]}")
+        points = "; ".join(f"{ln['config']}: recall@10 {ln['recall_at_10']:.4f}, p50 "
+                           f"{ln['qps']:.1f} QPS" for ln in sweep)
+        print(f"harness (c) eval_torch_recall.py [{smi}]: {points} (128 queries in batches of 64, "
+              f"median of 3 passes); {wall:.1f} s wall; kernel launches {c_launches}, the "
+              f"warm-ups included (timed passes "
+              f"{ {dt: sum(ln['timed_launches'][dt] for ln in sweep) for dt in kernels} })",
+              flush=True)
+        # The sweep's first batch: the script's queries (its corpus is the
+        # SciFact phase's, topics and all).
+        batch = make_queries(topics, num_queries=128)[:64]
+        sci = DeviceIndex.load(SERVICE_SRC, device=device)
+        q_arr, q_mask = S._pad_queries(batch, sci.dim)
+        shapes = S.PipelineShapes.derive(sci, SearchParameters(top_k=10, mode="staged",
+                                                               n_ivf_probe=16), 64, q_arr.shape[1])
+        s4, n_union = stage4_kernel_args(sci, torch.from_numpy(q_arr).to(device),
+                                         torch.from_numpy(q_mask).to(device), shapes)
+        check("bf16", s4, f"(c) staged nprobe=16 stage 4: union {n_union} docs, grid "
+                          f"{tuple(s4[1].shape)}, 64q")
+        sci = sci.with_token_grid()
+        check("bf16", exact_grid_args(sci, batch), f"(c) exact bf16 grid {tuple(sci.token_grid.shape)}, 64q")
+        del sci, s4
+        # (d)'s smoke grid, as eval_torch_beir.py --smoke --mode local builds it.
+        sys.path.insert(0, os.path.join(ROOT, "scripts"))
+        import eval_torch_beir
+        from nextplaid_tpu_torch.eval import load_beir, make_synthetic_beir
+
+        smoke_dir = os.path.join(HARNESS_DIR, "beir_smoke")
+        make_synthetic_beir(smoke_dir, num_docs=64, num_queries=8)
+        docs, bq, _ = load_beir(smoke_dir, split="test")
+        enc = eval_torch_beir.HashEncoder()
+        create_index(enc.encode_documents([eval_torch_beir.doc_text(d) for d in docs]),
+                     os.path.join(smoke_dir, "corpus"), IndexConfig(nbits=4), device=device)
+        smoke = DeviceIndex.load(os.path.join(smoke_dir, "corpus"), device=device).with_token_grid()
+        check("bf16", exact_grid_args(smoke, enc.encode_queries(list(bq.values()))),
+              f"(d) beir smoke grid {tuple(smoke.token_grid.shape)}, {len(bq)}q")
+        del smoke
+
+        # (d)-(f) Five children at once: their times share the card and
+        # the host.
+        t0 = time.perf_counter()
+        procs.clear()
+        for key, *argv in (
+            ("beir local", "eval_torch_beir.py", "--smoke", "--mode", "local"),
+            ("beir api", "eval_torch_beir.py", "--smoke", "--mode", "api"),
+            ("offline", "fetch_torch_eval_assets.py", "--offline"),
+            ("codesearch", "eval_torch_codesearch.py", "--smoke"),
+            ("stress", "run_torch_stress_acceptance.py", str(STRESS_CYCLES)),
+        ):
+            procs[key] = start_script(*argv)
+        done = {key: finish_script(p, key, t0) for key, p in procs.items()}
+        d_launches = {dt: 0 for dt in kernels}
+        parts = []
+        for key in ("beir local", "beir api"):
+            res, wall = done[key]
+            m = res[-1]["metrics"]
+            if m["ndcg@10"] < 0.9:
+                raise AssertionError(f"harness (d) {key}: {m}")
+            for dt in kernels:
+                d_launches[dt] += res[-1]["kernel_launches"][dt]
+            parts.append(f"{key} ndcg@10 {m['ndcg@10']:.4f} recall@10 {m['recall@10']:.4f} "
+                         f"({wall:.1f} s)")
+        rec, wall = done["offline"]
+        for mode in ("local", "api"):
+            m = rec[-1]["results"][mode]["metrics"]
+            if m["ndcg@10"] < 0.85 or m["recall@10"] < 0.95:
+                raise AssertionError(f"harness (d) offline {mode}: {m}")
+            parts.append(f"offline {mode} ndcg@10 {m['ndcg@10']:.4f} recall@10 "
+                         f"{m['recall@10']:.4f}")
+        for dt in kernels:
+            d_launches[dt] += rec[-1]["kernel_launches"][dt]
+        parts[-1] += f" ({wall:.1f} s)"
+        if d_launches["bf16"] < 3:
+            raise AssertionError(f"harness (d): bf16 launches {d_launches}")
+        print(f"harness (d) eval_torch_beir.py --smoke, fetch_torch_eval_assets.py --offline: "
+              f"{'; '.join(parts)}; kernel launches {d_launches}", flush=True)
+        cs, wall = done["codesearch"]
+        if cs[-1]["metrics"]["ndcg@10"] < 0.9:
+            raise AssertionError(f"harness (e): {cs[-1]['metrics']}")
+        print(f"harness (e) eval_torch_codesearch.py --smoke: {cs[-1]['metrics']}, "
+              f"{cs[-1]['units_indexed']} units ({wall:.1f} s)", flush=True)
+        st, wall = done["stress"]
+        st = st[-1]
+        if st["cycles"] != STRESS_CYCLES or not st["count_sync_verified_every_op"]:
+            raise AssertionError(f"harness (f): {st}")
+        print(f"harness (f) run_torch_stress_acceptance.py {STRESS_CYCLES} [{smi}]: "
+              f"{st['elapsed_seconds']:.2f} s in the script ({wall:.1f} s wall), "
+              f"{st['total_documents_added']} added, {st['total_documents_deleted']} deleted in "
+              f"{st['delete_operations']} deletes, {st['final_documents']} final; every check "
+              f"held; (d)-(f) ran as {len(procs)} processes at once, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for dt in kernels:
+            launches[dt] = a_launches[dt] + b_launches[dt] + c_launches[dt] + d_launches[dt]
+        print(f"harness: the phase {time.perf_counter() - t_phase:.1f} s; kernel launches of "
+              f"(a)-(d) {launches}; kernel checks at their arguments: "
+              f"{ {dt: len(e) for dt, e in errs.items()} }", flush=True)
+        return {dt: {"harness_launches": launches[dt], "harness_max_abs_err": max(errs[dt])}
+                for dt in kernels}
+    finally:
+        for p in procs.values():  # a failed or timed-out child leaves the others running
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(HARNESS_DIR, ignore_errors=True)
+        shutil.rmtree(SERVICE_SRC, ignore_errors=True)  # the last phase that reads it
 
 
 def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms, bound_ms, bound_by):
@@ -3364,30 +3605,36 @@ def main() -> int:
     # staged search over the same corpus's full index, then that corpus as
     # sharded int8 grids (the sharded phase's (d)).
     int8, staged, mega = grid_only_phase(device, mk)
+    # Phase 15: the eleventh slice's path, the entry points outside the
+    # package: entry() and the dry run in this process, then the scripts.
+    harness = harness_phase(device, mk, smi, topics)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # Phase 15: the kernels line, then the device line. The bf16 kernel's
+    # Phases 16-17: the kernels line, then the device line. The bf16 kernel's
     # launches are the SciFact path's, the staged path's, the mutation
-    # phase's, the encoder phase's, the service phase's, the RQ phase's and
-    # the sharded phase's (its ranks' too); its ms, bound
+    # phase's, the encoder phase's, the service phase's, the RQ phase's,
+    # the sharded phase's (its ranks' too) and the harness phase's (its
+    # children's too); its ms, bound
     # and plain ms are the SciFact pass's, the staged_* keys the stage-4
     # shape's. The int8 kernel's are the grid-only path's, the mutation
-    # phase's, the service phase's and the sharded phase's, (d) included.
+    # phase's, the service phase's, the sharded phase's, (d) included, and
+    # the harness phase's.
     bf16_entry = kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:])
     bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged, **mutation["bf16"],
-                      **encoder, **service["bf16"], **rq, **sharded["bf16"])
+                      **encoder, **service["bf16"], **rq, **sharded["bf16"], **harness["bf16"])
     bf16_entry["launches"] += (staged["staged_launches"] + mutation["bf16"]["mutation_launches"]
                                + encoder["encoder_launches"] + service["bf16"]["service_launches"]
-                               + rq["rq_launches"] + sharded["bf16"]["sharded_launches"])
+                               + rq["rq_launches"] + sharded["bf16"]["sharded_launches"]
+                               + harness["bf16"]["harness_launches"])
     int8_entry = kernel_entry("maxsim_grid_scores_int8i", "nextplaid_tpu_torch/csrc/maxsim_int8.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:150", *int8)
     int8_entry.update(grid_only_launches=int8_entry["launches"], **mutation["int8"],
-                      **service["int8"], **sharded["int8"], **mega)
+                      **service["int8"], **sharded["int8"], **mega, **harness["int8"])
     int8_entry["launches"] += (mutation["int8"]["mutation_launches"]
                                + service["int8"]["service_launches"]
                                + sharded["int8"]["sharded_launches"]
-                               + mega["mega_sharded_launches"])
+                               + mega["mega_sharded_launches"] + harness["int8"]["harness_launches"])
     print(json.dumps({"kernels": [bf16_entry, int8_entry, variants]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -16,8 +16,9 @@ Three parts:
    k-means carried across), and `/encode` of the port's `Colbert` (f32, the
    JAX weights carried by `params_from_jax`) equals the JAX one within 1e-5.
 3. The port's own behaviour: the in-place append of a served index, the
-   kernels built at server start on a card, and the refusal to start
-   without one. The sharded serve modes run through the reference's own
+   kernels built at server start on a card, the refusal to start
+   without one, and `api.inprocess.InProcessServer` (the server on a
+   thread of the caller, as the harnesses run it). The sharded serve modes run through the reference's own
    tests (`test_sharded_serve_modes`, `test_sharded_staged_append_in_place`
    and `tests/test_device_append.py::test_api_ingest_uses_sharded_grid_append`),
    the service's mesh made eight CPU shards by the `cpu_mesh8` fixture, as
@@ -61,12 +62,33 @@ def jax_random_params(cfg, seed=0):
     return TM.params_from_jax(JM.init_random_params(jcfg, seed=seed))
 
 
-def port_battery(name, *edits):
+class _OnTheCpu(ast.NodeTransformer):
+    """Adds device="cpu" to every call of one of `names` (the callee as
+    written, e.g. "create_index" or "DeviceIndex.load") that names no device
+    and passes no **kwargs."""
+
+    def __init__(self, names):
+        self.names = set(names)
+        self.seen = set()
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        callee = ast.unparse(node.func)
+        if callee in self.names and not any(
+            kw.arg in ("device", None) for kw in node.keywords
+        ):
+            node.keywords.append(ast.keyword("device", ast.Constant("cpu")))
+            self.seen.add(callee)
+        return node
+
+
+def port_battery(name, *edits, cpu_calls=()):
     """Load tests/<name>.py as a module whose imports of the JAX package
     name the port instead; then apply `edits`, (old, new) pairs of source
-    text, each of which must occur. Its tests and fixtures are the reference
-    file's own code, run against the port; `jax_random_params` is in its
-    namespace."""
+    text, each of which must occur, and give every call of `cpu_calls`
+    (callees as written, each of which must occur) device="cpu". Its tests
+    and fixtures are the reference file's own code, run against the port;
+    `jax_random_params` is in its namespace."""
     path = os.path.join(TESTS, f"{name}.py")
     with open(path) as f:
         src = re.sub(r"\bnextplaid_tpu\b(?!_torch)", "nextplaid_tpu_torch", f.read())
@@ -78,9 +100,28 @@ def port_battery(name, *edits):
     mod.jax_random_params = jax_random_params
     sys.modules[mod.__name__] = mod
     tree = ast.parse(src, path)
+    if cpu_calls:
+        on_cpu = _OnTheCpu(cpu_calls)
+        tree = ast.fix_missing_locations(on_cpu.visit(tree))
+        assert on_cpu.seen == set(cpu_calls), (name, set(cpu_calls) - on_cpu.seen)
     rewrite_asserts(tree, src.encode(), path)  # pytest's failure messages
     exec(compile(tree, path, "exec"), mod.__dict__)
     return mod
+
+
+def expose(mod, namespace, left_out=()):
+    """Put the battery `mod`'s tests (but `left_out`) and fixtures into
+    `namespace` (a test module's globals()), where pytest collects them.
+    Returns the names of the tests put there."""
+    from _pytest.fixtures import FixtureFunctionDefinition
+
+    missing = set(left_out) - set(dir(mod))
+    assert not missing, missing
+    names = tuple(n for n in dir(mod) if n.startswith("test_") and n not in left_out)
+    for n in dir(mod):
+        if n in names or isinstance(getattr(mod, n), FixtureFunctionDefinition):
+            namespace[n] = getattr(mod, n)
+    return names
 
 
 # The entry points of the port run on "cuda" unless given a device.
@@ -570,3 +611,25 @@ def test_without_device_raises(tmp_path, monkeypatch):
         port_state.AppState(str(tmp_path))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--index-dir", str(tmp_path), "--port", "0"])
+
+
+def test_in_process_server_serves_and_stops(tmp_path):
+    """`InProcessServer` answers through the SDK on the device it is given,
+    and `stop()` ends its thread; a server that cannot start raises."""
+    from nextplaid_tpu_torch.api.inprocess import InProcessServer
+    from nextplaid_tpu_torch.client import NextPlaidClient
+
+    server = InProcessServer(str(tmp_path), device="cpu")
+    try:
+        client = NextPlaidClient(server.url)
+        assert client.health()["status"] == "ok"
+        client.create_index("idx", config={"nbits": 2})
+        assert client.list_indices() == ["idx"]
+        assert server.state.device == torch.device("cpu")
+    finally:
+        server.stop()
+    assert not server.thread.is_alive()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.cuda, "is_available", lambda: False)
+            InProcessServer(str(tmp_path))

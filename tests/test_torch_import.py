@@ -2,6 +2,7 @@
 entry points do not fall back to the CPU when no device is named."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -22,12 +23,19 @@ CODESEARCH_MODULES = ("cli", "config", "display", "embed", "indexer", "install",
                       "ranking", "searcher", "structparse", "types", "webformats")
 
 
+SCRIPTS = sorted(glob.glob(os.path.join(ROOT, "scripts", "*torch*.py")))
+# The entry points of the eleventh slice, each run with --help below.
+ENTRY_SCRIPTS = ("eval_torch_beir.py", "fetch_torch_eval_assets.py", "eval_torch_codesearch.py",
+                 "eval_torch_recall.py", "run_torch_stress_acceptance.py")
+
+
 def _sources():
     for dirpath, _, files in os.walk(PACKAGE):
         for name in files:
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield from SCRIPTS
 
 
 def _imported_roots(path):
@@ -57,7 +65,7 @@ def test_import_leaves_jax_out():
         "nextplaid_tpu_torch.eval, nextplaid_tpu_torch.scripts_export, "
         "nextplaid_tpu_torch.ops.rq, nextplaid_tpu_torch.codesearch, "
         "nextplaid_tpu_torch.parallel, nextplaid_tpu_torch.parallel.mesh, "
-        "nextplaid_tpu_torch.parallel.sharded, "
+        "nextplaid_tpu_torch.parallel.sharded, nextplaid_tpu_torch.entry, "
         + ", ".join(f"nextplaid_tpu_torch.codesearch.{m}" for m in CODESEARCH_MODULES)
         + "\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'nextplaid_tpu') or "
@@ -77,6 +85,28 @@ def test_sources_import_no_jax(path):
     for module in _imported_roots(path):
         root = module.split(".")[0]
         assert root not in FORBIDDEN, f"{path} imports {module}"
+
+
+# Runs `target` as __main__ with --help, jax, flax and the JAX package made
+# unimportable (a None entry in sys.modules makes `import` raise).
+_HELP_WITHOUT_JAX = (
+    "import runpy, sys\n"
+    "sys.modules.update(jax=None, flax=None, nextplaid_tpu=None)\n"
+    "kind, target = sys.argv[1:3]\n"
+    "sys.argv = [target, '--help']\n"
+    "run = runpy.run_path if kind == 'path' else runpy.run_module\n"
+    "run(target, run_name='__main__')\n"
+)
+
+
+@pytest.mark.parametrize("target", [("module", "nextplaid_tpu_torch.entry")] + [
+    ("path", os.path.join("scripts", name)) for name in ENTRY_SCRIPTS], ids=lambda t: t[1])
+def test_entry_points_help_without_jax(target):
+    assert set(ENTRY_SCRIPTS) <= {os.path.basename(p) for p in SCRIPTS}
+    out = subprocess.run([sys.executable, "-c", _HELP_WITHOUT_JAX, *target],
+                         capture_output=True, text=True, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout
 
 
 @pytest.fixture
@@ -123,3 +153,25 @@ def test_device_setup_turns_tf32_off(monkeypatch):
     DeviceIndex.load(GOLDEN, device="cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_console_scripts_name_the_port():
+    """Each of the JAX package's console scripts has a `-torch` twin whose
+    entry point is the port's same `main`; the kernel sources are package
+    data."""
+    import importlib
+    import tomllib
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        project = tomllib.load(f)
+    scripts = project["project"]["scripts"]
+    jax_scripts = {k: v for k, v in scripts.items() if v.startswith("nextplaid_tpu.")}
+    assert len(jax_scripts) == 4
+    for name, target in jax_scripts.items():
+        port = scripts[f"{name}-torch"]
+        assert port == target.replace("nextplaid_tpu.", "nextplaid_tpu_torch.", 1)
+        module, func = port.split(":")
+        assert callable(getattr(importlib.import_module(module), func))
+    data = project["tool"]["setuptools"]["package-data"]["nextplaid_tpu_torch"]
+    for pattern in data:
+        assert glob.glob(os.path.join(PACKAGE, pattern))
