@@ -117,6 +117,25 @@ port's paths:
      scripts/run_torch_stress_acceptance.py 12 (f). The children print their
      kernel launches, which the kernels line adds. Each kernel is held
      against its plain version at the arguments (a)-(d) give it.
+  13. the online eval-asset fetch (this slice's path), after the harness:
+     a zip of tests/fixtures/mini_beir served by an `http.server` thread on
+     127.0.0.1, scripts/fetch_torch_eval_assets.py run online twice with
+     --device cuda into a fresh --assets-dir (its BEIR_BASE and DATASET_MD5
+     pointed at the loopback server in its process): the zip arrives once,
+     md5 checked, the second run requests nothing, a wrong md5 raises and
+     leaves no file, and each run passes the offline dry run's gates.
+  14. the CUDA image replayed on the card (this slice's path), last:
+     without docker, a directory holding only docker/Dockerfile.cuda's COPY
+     set stands for /app; its build step (the two served kernels and the
+     native host library) and import check run there; then the server
+     starts from the image's ENTRYPOINT and docker-compose.yml's command
+     and environment (docker-compose.cuda.yml laid over it; the volumes
+     mapped to the SciFact index and a model directory at
+     GTE-ModernColBERT-v1's widths), (a) with the compose defaults (the
+     bf16 kernel) and (b) with NEXT_PLAID_SERVE_MODE=grid_only (the int8
+     kernel), each driven over HTTP through the SDK and held against
+     in-process search; the servers compile nothing and load the copy's
+     libraries.
   Phases 9 and 10 run after phase 8 and before phases 4-5 (grid-only and
   staged serving at megascale), whose build needs the most memory.
 The megascale path also loads its host arrays twice with the merge cache
@@ -793,6 +812,50 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
 
+def cuda_holders(min_bytes=32 << 20, limit=12):
+    """The live CUDA tensors of at least `min_bytes` that Python can reach,
+    largest storage first, each with what refers to it: (their GB, lines)."""
+    import types
+
+    gc.collect()
+    tensors, seen = [], set()
+    for obj in gc.get_objects():
+        try:
+            if not (torch.is_tensor(obj) and obj.is_cuda):
+                continue
+            storage = obj.untyped_storage()
+        except (ReferenceError, RuntimeError):
+            continue
+        if storage.nbytes() >= min_bytes and storage.data_ptr() not in seen:
+            seen.add(storage.data_ptr())
+            tensors.append(obj)
+    tensors.sort(key=lambda t: -t.untyped_storage().nbytes())
+    skip = {id(tensors), id(sys._getframe())}
+
+    def owner(ref, obj):
+        if isinstance(ref, types.FrameType):
+            return f"frame {ref.f_code.co_name}:{ref.f_lineno}"
+        if isinstance(ref, dict):
+            if "__name__" in ref and "__builtins__" in ref:
+                return f"module {ref['__name__']}"
+            outer = [type(o).__name__ for o in gc.get_referrers(ref)
+                     if getattr(o, "__dict__", None) is ref]
+            keys = [k for k, v in ref.items() if v is obj][:2]
+            return f"dict{keys} of {outer or 'no object'}"
+        if isinstance(ref, (list, tuple)):
+            outer = sorted({type(o).__name__ for o in gc.get_referrers(ref) if id(o) not in skip})
+            return f"{type(ref).__name__}[{len(ref)}] in {outer}"
+        return type(ref).__name__
+
+    lines, top = [], tensors[:limit]
+    skip.add(id(top))
+    for obj in top:
+        refs = [owner(r, obj) for r in gc.get_referrers(obj) if id(r) not in skip]
+        lines.append(f"{tuple(obj.shape)} {obj.dtype} {obj.untyped_storage().nbytes() / 1e9:.3f} "
+                     f"GB <- {'; '.join(refs[:4]) or 'nothing Python sees'}")
+    return sum(t.untyped_storage().nbytes() for t in tensors) / 1e9, lines
+
+
 def mega_sharded_phase(path, device, mk, batches, unrefined, oracle):
     """Phase (d) of the sharded path: `shard_grid_only(dtype="int8")` of the
     megascale index onto SHARDS shards on the one card, its unrefined top-10
@@ -809,6 +872,9 @@ def mega_sharded_phase(path, device, mk, batches, unrefined, oracle):
     mesh = make_mesh(devices=[device] * SHARDS)
     torch.cuda.reset_peak_memory_stats()
     before_gb = torch.cuda.memory_allocated() / 1e9
+    held_gb, held = cuda_holders()
+    print(f"sharded (d): {before_gb:.3f} GB allocated before the load; {held_gb:.3f} GB of it in "
+          f"tensors Python reaches: {' | '.join(held) or 'none'}", flush=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sg = ShardedGridIndex.shard_grid_only(path, mesh, "int8")
@@ -1944,6 +2010,14 @@ def median_ms(fn, reps):
     return statistics.median(times)
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def request_stages(client, index, path, queries, reps=SVC_STAGE_REPS):
     """One /search request of `queries` (base64 f32) split by stage, each
     timed alone on this thread with the server's own functions on the
@@ -2309,11 +2383,8 @@ def service_phase(device, mk, src_path, topics, queries, widths=GTE_WIDTHS):
 
         # (g) the server as a subprocess: answers, then exits 0 on SIGTERM.
         import signal
-        import socket
 
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
+        port = free_port()
         proc = subprocess.Popen(
             [sys.executable, "-m", "nextplaid_tpu_torch.api.server", "--host", "127.0.0.1",
              "--port", str(port), "--index-dir", index_dir, "--device", device.type],
@@ -2871,6 +2942,25 @@ LLOYD_ATOL = 1e-5
 RANK_TIMEOUT_S = 300
 
 
+def warm_passes(fn, passes):
+    """`fn()` once to warm up, then `passes` timed runs, each ended by a
+    sync. Returns (the last run's result, the runs' seconds)."""
+    fn()
+    out, secs = None, []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def qps_line(n, secs):
+    qps = [n / x for x in secs]
+    return f"p50 {statistics.median(qps):.1f} QPS (min {min(qps):.1f}, max {max(qps):.1f})"
+
+
 def assert_same_shard_topk(got, want, label):
     """`assert_same_topk` at SHARD_ATOL; returns the largest score gap."""
     return assert_same_topk(got, want, 0.0, label, atol=SHARD_ATOL)
@@ -2918,13 +3008,6 @@ def run_ranks(device, path, queries, out_dir):
     share the card) and one process x 4 shards (NCCL on a card of its own),
     all three started together. Returns each group's outputs by rank; a rank
     that fails or outlives RANK_TIMEOUT_S fails the phase."""
-    import socket
-
-    def free_port():
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            return sock.getsockname()[1]
-
     q_path = os.path.join(out_dir, "queries.npy")
     np.save(q_path, np.stack(queries))
     groups = {"gloo": (2, SHARDS // 2, free_port()), "nccl": (1, SHARDS, free_port())}
@@ -3071,30 +3154,27 @@ def sharded_phase(device, mk, src_path, topics, queries):
         unpinned = DeviceIndex.load(path, device=device)
         exact = SearchParameters(top_k=10, mode="exact")
         oracle = search_batch(unpinned, queries, exact)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = search_batch_sharded(si, queries, exact)
-        exact_s = time.perf_counter() - t0
+        got, pass_s = warm_passes(lambda: search_batch_sharded(si, queries, exact), SHARD_PASSES)
+        exact_qps = qps_line(NUM_QUERIES, pass_s)
         gaps.append(assert_same_shard_topk(got, oracle, "sharded (b) exact vs the single-card scan"))
         staged = []
         for label, p in (("default", SearchParameters(top_k=10, mode="staged")),
                          ('"quality"', SearchParameters.preset("quality", top_k=10, mode="staged"))):
             r_single = recall_at_10(search_batch(unpinned, queries, p), oracle)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = search_batch_sharded(si, queries, p)
-            wall = time.perf_counter() - t0
+            got, pass_s = warm_passes(lambda p=p: search_batch_sharded(si, queries, p),
+                                      SHARD_PASSES)
             check_results(got, NUM_QUERIES)
             r_sharded = recall_at_10(got, oracle)
             if r_sharded < r_single - RECALL_SLACK:
                 raise AssertionError(f"sharded (b) staged {label}: recall@10 {r_sharded} < "
                                      f"single-card {r_single} - {RECALL_SLACK}")
             staged.append(f"{label} {r_sharded:.4f} (single card {r_single:.4f}, "
-                          f"{NUM_QUERIES / wall:.1f} QPS)")
+                          f"{qps_line(NUM_QUERIES, pass_s)})")
         del unpinned
-        print(f"sharded (b) [ShardedIndex, {SHARDS} shards, capacity {SHARD_CAPACITY}]: shard "
-              f"{shard_s:.2f} s; exact top-10 = the single-card scan's ({NUM_QUERIES / exact_s:.1f} "
-              f"QPS); staged recall@10 vs the f32 oracle {'; '.join(staged)}", flush=True)
+        print(f"sharded (b) [ShardedIndex, {SHARDS} shards, capacity {SHARD_CAPACITY}; "
+              f"{NUM_QUERIES} queries, one warm-up pass, then {SHARD_PASSES} timed]: shard "
+              f"{shard_s:.2f} s; exact top-10 = the single-card scan's ({exact_qps}); staged "
+              f"recall@10 vs the f32 oracle {'; '.join(staged)}", flush=True)
 
         docs = new_docs(topics, MUT_BATCH, seed=900)
         info = {}
@@ -3516,6 +3596,435 @@ def harness_phase(device, mk, smi, topics):
                 p.kill()
                 p.communicate()
         shutil.rmtree(HARNESS_DIR, ignore_errors=True)
+
+
+FETCH_DIR = os.path.join(ROOT, "build", "chip_smoke_fetch")
+FETCH_DATASET = "mini_beir"
+PROXY_VARS = ("http_proxy", "https_proxy", "all_proxy", "HTTP_PROXY", "HTTPS_PROXY", "ALL_PROXY")
+# The online fetch in a process of its own, with BEIR_BASE and DATASET_MD5
+# pointed at the loopback server: argv <base url> <dataset> <md5> <flags...>.
+FETCH_ONLINE = ("import sys; sys.path.insert(0, 'scripts'); import fetch_torch_eval_assets as f; "
+                "f.BEIR_BASE = sys.argv[1]; f.DATASET_MD5 = {sys.argv[2]: sys.argv[3]}; "
+                "sys.exit(f.main(sys.argv[4:]))")
+
+
+def loopback_env():
+    """This process's environment with no proxy: urllib would send even a
+    request to 127.0.0.1 through one."""
+    env = {k: v for k, v in os.environ.items() if k not in PROXY_VARS}
+    env["no_proxy"] = env["NO_PROXY"] = "127.0.0.1,localhost"
+    return env
+
+
+@contextlib.contextmanager
+def loopback_zip(dataset_dir, name, work):
+    """`<name>.zip` of `dataset_dir` (laid out as BEIR's zips lay a dataset
+    out: <name>/corpus.jsonl, ...) served by an `http.server` thread on
+    127.0.0.1. Yields (base url, the zip's md5, the paths requested)."""
+    import hashlib
+    import http.server
+    import threading
+    import zipfile
+
+    os.makedirs(work, exist_ok=True)
+    zip_path = os.path.join(work, f"{name}.zip")
+    with zipfile.ZipFile(zip_path, "w") as z:
+        for dirpath, _, files in sorted(os.walk(dataset_dir)):
+            for f in sorted(files):
+                full = os.path.join(dirpath, f)
+                z.write(full, os.path.join(name, os.path.relpath(full, dataset_dir)))
+    requested = []
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, directory=work, **kw)
+
+        def do_GET(self):
+            requested.append(self.path)
+            super().do_GET()
+
+        def log_message(self, *a):
+            pass
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with open(zip_path, "rb") as f:
+            md5 = hashlib.md5(f.read()).hexdigest()
+        yield f"http://127.0.0.1:{server.server_address[1]}", md5, requested
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def fetch_phase(device, mk, smi):
+    """The online half of the eval-asset fetch over loopback: a zip of the
+    mini BEIR fixture served on 127.0.0.1, scripts/fetch_torch_eval_assets.py
+    run online twice (--device cuda, the fixture checkpoint as --model, a
+    fresh --assets-dir; BEIR_BASE and DATASET_MD5 set in the script's
+    process): the zip arrives once with its md5 checked, the second run
+    requests nothing, a wrong md5 raises and leaves no file, each run's
+    provenance names the loopback URL and md5 and its NDCG@10 and recall@10
+    pass the offline dry run's gates. The bf16 kernel is held against its
+    plain version on the mini BEIR grid, rebuilt here as the script's server
+    builds it. Returns the bf16 kernel's launches in the two runs (their
+    children's counts) and its largest difference from the plain version."""
+    import hashlib
+    from pathlib import Path
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import eval_torch_beir
+    import fetch_torch_eval_assets as fetch
+
+    from nextplaid_tpu_torch.encoder import Colbert
+    from nextplaid_tpu_torch.eval import load_beir
+    from nextplaid_tpu_torch.index import DeviceIndex, IndexConfig, create_index
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(FETCH_DIR, ignore_errors=True)
+    assets = os.path.join(FETCH_DIR, "assets")
+    try:
+        ckpt = fetch.write_fixture_checkpoint(Path(FETCH_DIR) / "mini-colbert")
+        with loopback_zip(str(fetch.FIXTURE_DIR), FETCH_DATASET,
+                          os.path.join(FETCH_DIR, "served")) as (base, md5, requested):
+            argv = ["--dataset", FETCH_DATASET, "--model", str(ckpt), "--assets-dir", assets,
+                    "--device", "cuda"]
+            runs = []
+            for k in range(2):
+                t0 = time.perf_counter()
+                proc = subprocess.Popen([sys.executable, "-c", FETCH_ONLINE, base, FETCH_DATASET,
+                                         md5, *argv], cwd=ROOT, env=loopback_env(),
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                lines, wall = finish_script(proc, f"fetch_torch_eval_assets.py online, run {k + 1}",
+                                            t0)
+                runs.append((lines[-1], wall, list(requested)))
+            url = f"{base}/{FETCH_DATASET}.zip"
+            if [r[2] for r in runs] != [[f"/{FETCH_DATASET}.zip"]] * 2:
+                raise AssertionError(f"fetch: requests after each run {[r[2] for r in runs]}")
+            with open(os.path.join(assets, f"{FETCH_DATASET}.zip"), "rb") as f:
+                if hashlib.md5(f.read()).hexdigest() != md5:
+                    raise AssertionError("fetch: the zip on disk is not the one served")
+            wrong = Path(FETCH_DIR) / "wrong"
+            wrong.mkdir()
+            proxies = {k: os.environ.pop(k) for k in PROXY_VARS if k in os.environ}
+            try:
+                fetch._download(url, wrong / f"{FETCH_DATASET}.zip", "0" * 32)
+            except RuntimeError as e:
+                refused = str(e)
+            else:
+                raise AssertionError("fetch: a wrong md5 was accepted")
+            finally:
+                os.environ.update(proxies)
+            if list(wrong.iterdir()):
+                raise AssertionError(f"fetch: a refused download left {list(wrong.iterdir())}")
+        launches = 0
+        for rec, wall, _ in runs:
+            m = rec["metrics"]
+            if m["ndcg@10"] < fetch.MIN_NDCG10 or m["recall@10"] < fetch.MIN_RECALL10:
+                raise AssertionError(f"fetch: {m} below the gates")
+            if rec["provenance"] != {"dataset_url": url, "dataset_md5": md5,
+                                     "model": str(ckpt), "model_revision": None}:
+                raise AssertionError(f"fetch: provenance {rec['provenance']}")
+            if rec["device"] != "cuda" or rec["kernel_launches"]["bf16"] < 1:
+                raise AssertionError(f"fetch: device {rec['device']}, launches "
+                                     f"{rec['kernel_launches']}")
+            launches += rec["kernel_launches"]["bf16"]
+        # The run's grid, rebuilt here: its checkpoint and corpus, nbits 4.
+        docs, queries, _ = load_beir(str(fetch.FIXTURE_DIR), split="test")
+        enc = Colbert(str(ckpt), device=device)
+        idx = os.path.join(FETCH_DIR, "grid")
+        create_index(enc.encode_documents([eval_torch_beir.doc_text(d) for d in docs]), idx,
+                     IndexConfig(nbits=4), device=device)
+        grid = DeviceIndex.load(idx, device=device).with_token_grid()
+        err = check_kernel(mk.maxsim_grid_scores, mk.maxsim_grid_scores_reference,
+                           exact_grid_args(grid, enc.encode_queries(list(queries.values()))),
+                           f"fetch mini BEIR grid {tuple(grid.token_grid.shape)}, "
+                           f"{len(queries)}q")
+        take_launches(mk.maxsim_grid_scores)  # the comparison's launch: not the path's
+        del enc, grid
+        parts = [f"run {k + 1} ndcg@10 {r[0]['metrics']['ndcg@10']:.4f} recall@10 "
+                 f"{r[0]['metrics']['recall@10']:.4f}, {r[1]:.1f} s, {len(r[2])} request(s) so far"
+                 for k, r in enumerate(runs)]
+        print(f"fetch [{smi}]: fetch_torch_eval_assets.py online over loopback ({url}, md5 "
+              f"{md5}): {'; '.join(parts)}; the zip arrived once, md5 checked, the second run "
+              f"requested nothing; a wrong md5 raised ({refused[:60]}...) and left no file; "
+              f"provenance = the loopback URL and md5; kernel launches bf16 {launches}; the phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        return {"fetch_launches": launches, "fetch_max_abs_err": err}
+    finally:
+        shutil.rmtree(FETCH_DIR, ignore_errors=True)
+
+
+DEPLOY_DIR = os.path.join(ROOT, "build", "chip_smoke_deploy")
+DEPLOY_MODEL = "gte-moderncolbert-random"  # a directory under the models volume
+DEPLOY_START_S = 300
+DEPLOY_TEXT_QUERIES = ("protein folding in yeast", "vaccine cohort study",
+                       "climate model retrieval", "neuron genome")
+# Runs a replayed `python -m <module> ...` argv as -m does (runpy), and at
+# exit writes the process's MaxSim launch counts and its peak allocated
+# device memory to $CHIP_SMOKE_COUNTS: the server reports neither.
+LAUNCH_HOOK = """\
+import atexit, json, os, runpy, sys
+def _counts():
+    mk = sys.modules.get("nextplaid_tpu_torch.ops.maxsim_kernel")
+    torch = sys.modules.get("torch")
+    out = {"bf16": mk.maxsim_grid_scores.launches if mk else 0,
+           "int8": mk.maxsim_grid_scores_int8i.launches if mk else 0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9
+           if torch is not None and torch.cuda.is_initialized() else 0.0}
+    with open(os.environ["CHIP_SMOKE_COUNTS"], "w") as f:
+        json.dump(out, f)
+atexit.register(_counts)
+sys.argv = sys.argv[2:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def mapped_libraries(pid):
+    """The shared objects process `pid` has mapped."""
+    with open(f"/proc/{pid}/maps") as f:
+        return {ln.split()[-1] for ln in f if ln.rstrip().endswith(".so")}
+
+
+def deploy_phase(device, mk, smi, topics, queries):
+    """The CUDA image replayed on the card, without docker: a directory
+    holding only docker/Dockerfile.cuda's COPY set stands for /app; its
+    build step and import check run there as the image runs them; then the
+    server starts twice from the image's ENTRYPOINT and docker-compose.yml's
+    command and environment (docker-compose.cuda.yml laid over it, the
+    volumes mapped to the SciFact index of the earlier phases and a model
+    directory at GTE-ModernColBERT-v1's widths): (a) with the compose
+    defaults (serve mode and pin dtype "auto": the bf16 kernel), (b) with
+    NEXT_PLAID_SERVE_MODE=grid_only (the int8 kernel). Each is driven
+    through the SDK: /health, the 320 queries as 64-query requests, text
+    queries, one 32-doc /documents batch and a search for it. HTTP top-10 =
+    in-process search on the same index; the build directory gains no file
+    after the build step; the kernels and the native host library the
+    servers load are the copy's. Each kernel is held against its plain
+    version at the servers' arguments. Returns each kernel's launches in
+    the servers and its largest difference from the plain version."""
+    import signal
+    from pathlib import Path
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_deploy_spec as spec
+
+    from nextplaid_tpu_torch import filtering
+    from nextplaid_tpu_torch.api import state as port_state
+    from nextplaid_tpu_torch.api.models import IndexConfigStored
+    from nextplaid_tpu_torch.client import NextPlaidClient
+    from nextplaid_tpu_torch.client.client import _doc_payload
+    from nextplaid_tpu_torch.encoder import BackboneConfig, ColbertConfig, init_random_params
+    from nextplaid_tpu_torch.index import DeviceIndex, SearchParameters, load_grid_only, search_batch
+    from nextplaid_tpu_torch.index.exact import quantize_queries_int8
+    from nextplaid_tpu_torch.index.search import _pad_queries
+    from nextplaid_tpu_torch.storage import native
+    from nextplaid_tpu_torch.storage.npy import atomic_write_json, load_json
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
+    app = Path(DEPLOY_DIR) / "app"
+    data, models = Path(DEPLOY_DIR) / "indices", Path(DEPLOY_DIR) / "models"
+    kernels = {"bf16": mk.maxsim_grid_scores, "int8": mk.maxsim_grid_scores_int8i}
+    plains = {"bf16": mk.maxsim_grid_scores_reference,
+              "int8": mk.maxsim_grid_scores_int8i_reference}
+    proc = None
+    try:
+        image = spec.read_image()
+        copied = spec.copy_image_files(app, image=image)
+        if (app / "nextplaid_tpu").exists() or any(c.startswith("nextplaid_tpu/") for c in copied):
+            raise AssertionError("deploy: the JAX package is in the image's COPY set")
+        host_env = loopback_env()
+        steps = {}
+        for name, argv in (("build step", image.build_step), ("import check", image.import_check)):
+            r = spec.replay(image, argv, app, host_env, sys.executable)
+            t0 = time.perf_counter()
+            out = subprocess.run(r.argv, cwd=r.cwd, env=r.env, capture_output=True, text=True,
+                                 timeout=900)
+            steps[name] = time.perf_counter() - t0
+            if out.returncode != 0:
+                raise AssertionError(f"deploy: the image's {name} exited {out.returncode}: "
+                                     f"{out.stderr[-3000:]}")
+        build_dir = app / "build" / "nextplaid_tpu_torch"
+        built = {p.name: p.stat().st_mtime_ns for p in build_dir.iterdir()}
+        want_libs = {f"{src.stem}-{mk.build_tag(src)}.so" for src in (mk.SOURCE, mk.SOURCE_INT8)}
+        want_libs.add(native.library_path().name)
+        if not want_libs <= set(built):
+            raise AssertionError(f"deploy: the build step left {sorted(built)}, not {want_libs}")
+        for log in build_dir.glob("*.log"):
+            if "serialized" in log.read_text():
+                raise AssertionError(f"deploy: ptxas serialized wgmma in {log.name}")
+        print(f"deploy build [{smi}]: {len(copied)} files of the COPY set "
+              f"{image.copy_set}; build step {steps['build step']:.2f} s (nvcc x2 at once, g++), "
+              f"import check {steps['import check']:.2f} s; {app.name}/build/nextplaid_tpu_torch: "
+              f"{', '.join(sorted(built))}", flush=True)
+
+        # The volumes: the SciFact index as a deployment holds it (the
+        # server's config.json, metadata on every doc, no merge cache) and
+        # a model directory.
+        path = data / "scifact"
+        shutil.copytree(SERVICE_SRC, path, ignore=shutil.ignore_patterns("merged"))
+        n0 = load_json(path / "metadata.json")["num_documents"]
+        filtering.create(str(path), doc_metadata(range(n0)), list(range(n0)))
+        atomic_write_json(str(path / "config.json"), IndexConfigStored().model_dump())
+        tok, vocab = char_wordpiece()
+        bcfg = BackboneConfig(**GTE_WIDTHS)
+        ccfg = ColbertConfig(query_prefix="[Q]", document_prefix="[D]", query_length=32,
+                             document_length=300, embedding_dim=GTE_WIDTHS["projection_dim"],
+                             mask_token_id=vocab["[MASK]"], pad_token_id=vocab["[PAD]"],
+                             uses_token_type_ids=False)
+        write_model_dir(str(models / DEPLOY_MODEL), init_random_params(bcfg, seed=0), GTE_WIDTHS,
+                        tok, ccfg)
+        user = {"NEXT_PLAID_DATA": str(data), "NEXT_PLAID_MODELS": str(models),
+                "MODEL": f"/models/{DEPLOY_MODEL}"}
+
+        params = SearchParameters(top_k=10)
+        nq, q64 = len(queries), queries[:SVC_REQUEST_QUERIES]
+        q_arr, _ = _pad_queries(q64, 128)
+        qflat = torch.from_numpy(q_arr.reshape(-1, 128)).to(device)
+        out = {dt: {"deploy_launches": 0, "deploy_max_abs_err": 0.0} for dt in kernels}
+        for label, extra, dtype in (("a", {}, "bf16"),
+                                    ("b", {"NEXT_PLAID_SERVE_MODE": "grid_only"}, "int8")):
+            n_now = load_json(path / "metadata.json")["num_documents"]
+            # The in-process reference, loaded as the server loads this mode
+            # (the merge cache off: the server's own load must merge).
+            with merge_cache_flag("0"):
+                if dtype == "bf16":
+                    ref = DeviceIndex.load(str(path), capacity_factor=port_state.SERVE_CAPACITY_FACTOR,
+                                           grid_aware_capacity=True, device=device).with_token_grid()
+                    if ref.token_grid is None or ref.grid_is_int8:
+                        raise AssertionError("deploy (a): the served load did not pin a bf16 grid")
+                    args = [exact_grid_args(ref, q64)]
+                else:
+                    ref = load_grid_only(str(path), dtype="int8", device=device)
+                    qi8, qs = quantize_queries_int8(qflat)
+                    args = [(qi8, qs, g, sc, q_arr.shape[1]) for g, sc in zip(
+                        ref.grid_buckets or (ref.token_grid,), ref.scale_buckets or (ref.token_scales,))]
+            want, pass_s = warm_passes(lambda: search_batch(ref, queries, params), SVC_PASSES)
+            inproc = qps_line(nq, pass_s)
+            out[dtype]["deploy_max_abs_err"] = max(
+                check_kernel(kernels[dtype], plains[dtype], a,
+                             f"deploy ({label}) {dtype}, {SVC_REQUEST_QUERIES}q x {tuple(a[-3].shape)}")
+                for a in args)
+            take_launches(kernels[dtype])  # the parent's: not the servers'
+            grid_shape = tuple(args[0][-3].shape) if len(args) == 1 else [tuple(a[-3].shape) for a in args]
+            del ref, args
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(path / "merged", ignore_errors=True)
+
+            service = spec.compose_service({**user, **extra})
+            port = free_port()
+            r = spec.replay(image, spec.server_argv(image, service), app, host_env,
+                            sys.executable, service=service, port=port)
+            pythonpath = r.env["PYTHONPATH"].split(os.pathsep)
+            if pythonpath != [str(app)] or any((Path(d) / "nextplaid_tpu").exists()
+                                               for d in pythonpath + [r.cwd]):
+                raise AssertionError(f"deploy ({label}): PYTHONPATH {pythonpath} reaches the JAX package")
+            counts = Path(DEPLOY_DIR) / f"counts_{label}.json"
+            log = open(Path(DEPLOY_DIR) / f"server_{label}.log", "w")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen([r.argv[0], "-c", LAUNCH_HOOK, *r.argv[1:]], cwd=r.cwd,
+                                    env=dict(r.env, CHIP_SMOKE_COUNTS=str(counts)), stdout=log,
+                                    stderr=subprocess.STDOUT)
+            log.close()
+            url = f"http://127.0.0.1:{port}"
+            client = NextPlaidClient(url, timeout=600)
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"deploy ({label}): the server exited {proc.returncode}: "
+                                         f"{(Path(DEPLOY_DIR) / f'server_{label}.log').read_text()[-3000:]}")
+                try:
+                    health = client.health()
+                    break
+                except Exception:  # noqa: BLE001 - not listening yet
+                    if time.perf_counter() - t0 > DEPLOY_START_S:
+                        raise
+                    time.sleep(0.25)
+            start_s = time.perf_counter() - t0
+            if health["status"] != "ok" or health["model"]["embedding_dim"] != 128 or [
+                    i["name"] for i in health["indices"]] != ["scifact"]:
+                raise AssertionError(f"deploy ({label}): /health {health}")
+            t0 = time.perf_counter()
+            client.search("scifact", q64, top_k=10)  # loads (and pins) the index
+            first_s = time.perf_counter() - t0
+
+            chunks = [queries[s : s + SVC_REQUEST_QUERIES] for s in range(0, nq, SVC_REQUEST_QUERIES)]
+            jobs = [lambda c, q=q: c.search("scifact", q, top_k=10)
+                    for _ in range(SVC_PASSES * SVC_CLIENTS) for q in chunks]
+            bodies, wall, _ = run_clients(SVC_CLIENTS, jobs, url)
+            got = [res for body in bodies for res in http_results(body)]
+            for p in range(0, len(got), nq):
+                assert_same_topk(got[p : p + nq], want, SVC_RTOL, f"deploy ({label}) vs in-process")
+            texts = [http_results(client.search("scifact", [t], top_k=10))[0]
+                     for t in DEPLOY_TEXT_QUERIES]
+            if any(len(t.passage_ids) != 10 for t in texts):
+                raise AssertionError(f"deploy ({label}): a text query returned {texts}")
+
+            docs = new_docs(topics, MUT_BATCH, seed=700 + ord(label))
+            ids = list(range(n_now, n_now + MUT_BATCH))
+            t0 = time.perf_counter()
+            resp = client._request("POST", "/indices/scifact/documents", json={
+                "documents": [_doc_payload(d) for d in docs], "metadata": doc_metadata(ids)})
+            post_ms = 1e3 * (time.perf_counter() - t0)
+            if (resp["start_id"], resp["total_documents"]) != (n_now, n_now + MUT_BATCH):
+                raise AssertionError(f"deploy ({label}): /documents answered {resp}")
+            top = [res.passage_ids[0] for res in http_results(
+                client.search("scifact", [d[:32] for d in docs], top_k=10))]
+            searchable_ms = 1e3 * (time.perf_counter() - t0)
+            if top != ids:
+                raise AssertionError(f"deploy ({label}): the posted docs are not their own "
+                                     f"queries' top hits: {top} vs {ids}")
+
+            libs = mapped_libraries(proc.pid)
+            ours = {Path(x).name for x in libs if Path(x).parent == build_dir}
+            foreign = [x for x in libs if ("maxsim_" in x or "nextplaid_host" in x)
+                       and Path(x).parent != build_dir]
+            need = {f"{mk.SOURCE.stem}-{mk.build_tag(mk.SOURCE)}.so",
+                    f"{mk.SOURCE_INT8.stem}-{mk.build_tag(mk.SOURCE_INT8)}.so"}
+            if dtype == "bf16":  # the full load merges the chunks natively
+                need.add(native.library_path().name)
+            if foreign or not need <= ours:
+                raise AssertionError(f"deploy ({label}): the server mapped {sorted(ours)} from the "
+                                     f"copy and {foreign} from elsewhere; needs {sorted(need)}")
+            after = {p.name: p.stat().st_mtime_ns for p in build_dir.iterdir()}
+            if after != built:
+                raise AssertionError(f"deploy ({label}): the build directory changed: "
+                                     f"{sorted(set(after) ^ set(built))}")
+
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            stop_s = time.perf_counter() - t0
+            proc = None
+            if rc != 0:
+                raise AssertionError(f"deploy ({label}): the server exited {rc} on SIGTERM")
+            n = json.loads(counts.read_text())
+            if n[dtype] < 1:
+                raise AssertionError(f"deploy ({label}): the server launched {n}")
+            for dt in kernels:
+                out[dt]["deploy_launches"] += n[dt]
+            print(f"deploy ({label}) [{smi}; NEXT_PLAID_SERVE_MODE="
+                  f"{r.env['NEXT_PLAID_SERVE_MODE']}, NEXT_PLAID_PIN_DTYPE="
+                  f"{r.env['NEXT_PLAID_PIN_DTYPE']}; {dtype} grid {grid_shape}]: "
+                  f"{' '.join(r.argv[1:4])} ... {' '.join(r.argv[-8:])}; /health after "
+                  f"{start_s:.1f} s, first search (load + pin) {first_s:.2f} s; {len(got)} queries "
+                  f"in {len(jobs)} requests of {SVC_REQUEST_QUERIES} from {SVC_CLIENTS} clients, "
+                  f"{len(got) / wall:.1f} QPS over HTTP (in process {inproc}), top-10 = in-process; "
+                  f"{len(DEPLOY_TEXT_QUERIES)} text queries answered; a {MUT_BATCH}-doc /documents "
+                  f"POST {post_ms:.1f} ms, searchable {searchable_ms:.1f} ms after it began; "
+                  f"mapped from the copy: {', '.join(sorted(ours))}; the build directory gained "
+                  f"nothing; exit 0 {stop_s:.2f} s after SIGTERM; launches bf16 {n['bf16']}, int8 "
+                  f"{n['int8']}; the server's peak allocated {n['peak_gb']:.3f} GB", flush=True)
+        print(f"deploy: the phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+        return out
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
         shutil.rmtree(SERVICE_SRC, ignore_errors=True)  # the last phase that reads it
 
 
@@ -3608,33 +4117,43 @@ def main() -> int:
     # Phase 15: the eleventh slice's path, the entry points outside the
     # package: entry() and the dry run in this process, then the scripts.
     harness = harness_phase(device, mk, smi, topics)
+    # Phases 16-17: the twelfth slice's paths: the online eval-asset fetch
+    # over loopback, then the CUDA image replayed on the card, its servers
+    # as processes of their own.
+    fetch = fetch_phase(device, mk, smi)
+    deploy = deploy_phase(device, mk, smi, topics, queries)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # Phases 16-17: the kernels line, then the device line. The bf16 kernel's
+    # Phases 18-19: the kernels line, then the device line. The bf16 kernel's
     # launches are the SciFact path's, the staged path's, the mutation
     # phase's, the encoder phase's, the service phase's, the RQ phase's,
-    # the sharded phase's (its ranks' too) and the harness phase's (its
-    # children's too); its ms, bound
-    # and plain ms are the SciFact pass's, the staged_* keys the stage-4
-    # shape's. The int8 kernel's are the grid-only path's, the mutation
-    # phase's, the service phase's, the sharded phase's, (d) included, and
-    # the harness phase's.
+    # the sharded phase's (its ranks' too), the harness phase's (its
+    # children's too), the fetch phase's (its children's) and the deploy
+    # phase's (its servers'); its ms, bound and plain ms are the SciFact
+    # pass's, the staged_* keys the stage-4 shape's. The int8 kernel's are
+    # the grid-only path's, the mutation phase's, the service phase's, the
+    # sharded phase's, (d) included, the harness phase's and the deploy
+    # phase's.
     bf16_entry = kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:])
     bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged, **mutation["bf16"],
-                      **encoder, **service["bf16"], **rq, **sharded["bf16"], **harness["bf16"])
+                      **encoder, **service["bf16"], **rq, **sharded["bf16"], **harness["bf16"],
+                      **fetch, **deploy["bf16"])
     bf16_entry["launches"] += (staged["staged_launches"] + mutation["bf16"]["mutation_launches"]
                                + encoder["encoder_launches"] + service["bf16"]["service_launches"]
                                + rq["rq_launches"] + sharded["bf16"]["sharded_launches"]
-                               + harness["bf16"]["harness_launches"])
+                               + harness["bf16"]["harness_launches"] + fetch["fetch_launches"]
+                               + deploy["bf16"]["deploy_launches"])
     int8_entry = kernel_entry("maxsim_grid_scores_int8i", "nextplaid_tpu_torch/csrc/maxsim_int8.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:150", *int8)
     int8_entry.update(grid_only_launches=int8_entry["launches"], **mutation["int8"],
-                      **service["int8"], **sharded["int8"], **mega, **harness["int8"])
+                      **service["int8"], **sharded["int8"], **mega, **harness["int8"],
+                      **deploy["int8"])
     int8_entry["launches"] += (mutation["int8"]["mutation_launches"]
                                + service["int8"]["service_launches"]
                                + sharded["int8"]["sharded_launches"]
-                               + mega["mega_sharded_launches"] + harness["int8"]["harness_launches"])
+                               + mega["mega_sharded_launches"] + harness["int8"]["harness_launches"]
+                               + deploy["int8"]["deploy_launches"])
     print(json.dumps({"kernels": [bf16_entry, int8_entry, variants]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

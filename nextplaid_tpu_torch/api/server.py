@@ -1196,6 +1196,15 @@ def build_app(index_dir: str, encoder=None, device=None) -> web.Application:
 
         app.on_startup.append(_load_kernels)
 
+    # aiohttp keeps every Application it has built middleware for in a
+    # module-level cache (web_app._cached_build_middleware, an lru_cache of
+    # 1,024 entries), so this app and its state outlive the server: release
+    # the state's indexes and encoder when the server stops.
+    async def _close_state(app):
+        await app["state"].close()
+
+    app.on_cleanup.append(_close_state)
+
     if encoder is not None and os.environ.get("ENCODE_WARM") == "1":
         # Run every encode batch bucket once before serving traffic, so
         # the first forward of each shape does not pay the card's one-time
@@ -1211,7 +1220,9 @@ def build_app(index_dir: str, encoder=None, device=None) -> web.Application:
     return app
 
 
-def main(argv=None) -> None:
+def build_parser() -> argparse.ArgumentParser:
+    """The server's command line (what the CUDA image's ENTRYPOINT and the
+    compose `command` pass)."""
     parser = argparse.ArgumentParser(description="nextplaid_tpu_torch API server")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8080)
@@ -1230,7 +1241,11 @@ def main(argv=None) -> None:
         help="torch device of the indexes and the encoder (default cuda, "
         "which fails without a card; cpu runs the kernels' plain versions)",
     )
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
 
     from nextplaid_tpu_torch.utils.device import resolve_device
 

@@ -383,6 +383,20 @@ class AppState:
         self._indices.pop(name, None)
         self._config_cache.pop(name, None)
 
+    async def close(self) -> None:
+        """Stop the background workers and drop what this state holds on the
+        device: every loaded index and the encoder. A server's cleanup calls
+        this."""
+        workers = [*self._ingest_workers.values(), *self._delete_workers.values(),
+                   *self._search_workers.values()]
+        for task in workers:
+            task.cancel()
+        await asyncio.gather(*workers, return_exceptions=True)
+        if self.encoder_pool is not None:
+            await self.encoder_pool.stop()
+        self.encoder_pool = self.encoder = None
+        self._indices.clear()
+
     # -- progress -------------------------------------------------------------
 
     def set_progress(self, name: str, **kw) -> None:

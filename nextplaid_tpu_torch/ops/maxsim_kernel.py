@@ -202,12 +202,20 @@ def _library_int8() -> ctypes.CDLL:
     return lib
 
 
-def load_kernels() -> None:
-    """Build (one nvcc each, started together) and load the two served
-    kernels. A server on a card calls this before it takes requests, so
-    that no request waits for nvcc."""
+def build_served() -> Dict[str, Path]:
+    """Compile the two served kernels, one nvcc each, started together,
+    without loading them (an image build runs this without a card).
+    Returns {source stem: library path}."""
     with ThreadPoolExecutor(2) as pool:
-        list(pool.map(build_library, (SOURCE, SOURCE_INT8)))
+        libs = list(pool.map(build_library, (SOURCE, SOURCE_INT8)))
+    return {SOURCE.stem: libs[0], SOURCE_INT8.stem: libs[1]}
+
+
+def load_kernels() -> None:
+    """Build (`build_served`) and load the two served kernels. A server on a
+    card calls this before it takes requests, so that no request waits for
+    nvcc."""
+    build_served()
     _library()
     _library_int8()
 

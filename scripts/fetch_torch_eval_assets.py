@@ -1,28 +1,46 @@
-"""Offline dry run of the port's real-data eval path: every step that a
-SciFact run with a real checkpoint takes, apart from the download.
+"""Real-data eval assets for the port: from an empty machine to BEIR metrics
+on the card, and an offline dry run of every step of that path but the
+download.
 
-    python scripts/fetch_torch_eval_assets.py --offline [--device cpu] [--out FILE]
+Online (the default):
+  python scripts/fetch_torch_eval_assets.py --dataset scifact \\
+      --model lightonai/GTE-ModernColBERT-v1 [--assets-dir DIR] [--device cuda]
+  1. The BEIR zip `<BEIR_BASE>/<dataset>.zip`, downloaded into --assets-dir
+     and checked against its md5 (DATASET_MD5), then unpacked; a zip already
+     at `<assets-dir>/<dataset>.zip` is not downloaded again, and a dataset
+     already unpacked (`<assets-dir>/<dataset>/corpus.jsonl`) is used as it
+     is.
+  2. The model: --model as a directory when it is one; otherwise a snapshot
+     of that Hugging Face id through `huggingface_hub` (revision recorded),
+     which must be installed.
+  3. scripts/eval_torch_beir.py --mode api --device <device> over them, as
+     a child process; its metrics JSON, with the provenance (dataset url and
+     md5, model, revision) added.
+  So a local zip in --assets-dir and a model directory run it with no
+  download at all.
 
-1. The mini BEIR dataset in the real on-disk format (tests/fixtures/mini_beir:
-   corpus.jsonl, queries.jsonl, qrels/test.tsv; each query an 8-word excerpt
-   of its one relevant document), regenerated when it is missing.
-2. A checkpoint in the real Hugging Face format, written fresh with random
-   weights: torch-named (`bert.*`) model.safetensors, the `1_Dense/`
-   projection, config.json, a WordPiece tokenizer.json and onnx_config.json,
-   loaded by the port's `Colbert` through the path real checkpoints take.
-3. A tokenizer probe with hand-computed ids.
-4. scripts/eval_torch_beir.py's local and api modes over them, each gated at
-   NDCG@10 >= 0.85 and recall@10 >= 0.95 (a non-zero exit below either).
+Offline (--offline):
+  python scripts/fetch_torch_eval_assets.py --offline [--device cpu] [--out FILE]
+  1. The mini BEIR dataset in the real on-disk format (tests/fixtures/mini_beir:
+     corpus.jsonl, queries.jsonl, qrels/test.tsv; each query an 8-word excerpt
+     of its one relevant document), regenerated when it is missing.
+  2. A checkpoint in the real Hugging Face format, written fresh with random
+     weights: torch-named (`bert.*`) model.safetensors, the `1_Dense/`
+     projection, config.json, a WordPiece tokenizer.json and onnx_config.json,
+     loaded by the port's `Colbert` through the path real checkpoints take.
+  3. A tokenizer probe with hand-computed ids.
+  4. scripts/eval_torch_beir.py's local and api modes over them, each gated at
+     NDCG@10 >= 0.85 and recall@10 >= 0.95 (a non-zero exit below either).
 
 Everything runs on --device (default cuda, which fails without a card).
-Counterpart of the offline half of scripts/fetch_eval_assets.py; the online
-half (downloading a BEIR dataset and a model snapshot) is not part of this
-script. Prints one JSON object, also written to --out.
+Counterpart of scripts/fetch_eval_assets.py, with the same flags plus
+--device. Prints one JSON object, also written to --out.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -39,6 +57,15 @@ REPO = Path(__file__).resolve().parent.parent
 FIXTURE_DIR = REPO / "tests" / "fixtures" / "mini_beir"
 MIN_NDCG10 = 0.85
 MIN_RECALL10 = 0.95
+
+BEIR_BASE = (
+    "https://public.ukp.informatik.tu-darmstadt.de/thakur/BEIR/datasets"
+)
+# md5 checksums as published by the BEIR maintainers (beir.util downloads
+# verify the same values). Extend per dataset as needed.
+DATASET_MD5 = {
+    "scifact": "5f7d1de60b170fc8027bb7898e2efca1",
+}
 
 # --------------------------------------------------------------------------
 # Offline fixtures
@@ -261,26 +288,102 @@ def run_offline(device=None) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# Online path
+# --------------------------------------------------------------------------
+
+
+def _download(url: str, dest: Path, md5: str | None) -> None:
+    """`url` into `dest` through `dest.with_suffix(".part")`, checked
+    against `md5` when one is given: on a mismatch the partial file is
+    removed and RuntimeError raised, so `dest` appears only when whole."""
+    import urllib.request
+
+    print(f"downloading {url}", flush=True)
+    tmp = dest.with_suffix(".part")
+    urllib.request.urlretrieve(url, tmp)
+    if md5:
+        h = hashlib.md5()
+        with open(tmp, "rb") as f:
+            for chunk in iter(lambda: f.read(1 << 20), b""):
+                h.update(chunk)
+        if h.hexdigest() != md5:
+            tmp.unlink()
+            raise RuntimeError(
+                f"checksum mismatch for {url}: got {h.hexdigest()}, expected {md5}"
+            )
+    os.replace(tmp, dest)
+
+
+def run_online(args, device) -> dict:
+    """Fetch what is missing of the dataset and the model, then run
+    scripts/eval_torch_beir.py --mode api on `device` as a child process.
+    Returns its metrics record with the provenance added."""
+    import subprocess
+    import zipfile
+
+    assets = Path(args.assets_dir)
+    assets.mkdir(parents=True, exist_ok=True)
+    data_dir = assets / args.dataset
+    url = f"{BEIR_BASE}/{args.dataset}.zip"
+    if not (data_dir / "corpus.jsonl").exists():
+        zip_path = assets / f"{args.dataset}.zip"
+        if not zip_path.exists():
+            _download(url, zip_path, DATASET_MD5.get(args.dataset))
+        with zipfile.ZipFile(zip_path) as z:
+            z.extractall(assets)
+    model_dir = args.model
+    revision = None
+    if not os.path.isdir(model_dir):
+        try:
+            from huggingface_hub import snapshot_download
+        except ImportError as e:
+            raise RuntimeError(
+                f"--model {args.model!r} is not a directory, and fetching it from the hub "
+                "needs huggingface_hub, which is not installed") from e
+        model_dir = snapshot_download(args.model)
+        revision = Path(model_dir).name  # the snapshot's hash directory
+    with tempfile.TemporaryDirectory(prefix="beir_metrics_") as tmp:
+        out = Path(tmp) / "beir_metrics.json"
+        subprocess.run([
+            sys.executable, str(REPO / "scripts" / "eval_torch_beir.py"),
+            "--data-dir", str(data_dir), "--model", str(model_dir),
+            "--mode", "api", "--device", str(device), "--out", str(out),
+        ], check=True)
+        rec = json.loads(out.read_text())
+    rec["provenance"] = {
+        "dataset_url": url,
+        "dataset_md5": DATASET_MD5.get(args.dataset),
+        "model": args.model,
+        "model_revision": revision,
+    }
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--offline", action="store_true",
                     help="dry-run the full path on the committed fixtures")
+    ap.add_argument("--dataset", default="scifact")
+    ap.add_argument("--model", default="lightonai/GTE-ModernColBERT-v1")
+    ap.add_argument("--assets-dir", default="/tmp/eval_assets")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda, which fails without a card)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    if not args.offline:
-        ap.error("only the offline dry run is available here: pass --offline "
-                 "(scripts/fetch_eval_assets.py downloads assets)")
 
     from eval_torch_beir import reset_kernel_launches
 
     from nextplaid_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    reset_kernel_launches()
-    line = json.dumps(run_offline(device))
+    if args.offline:
+        reset_kernel_launches()
+        rec = run_offline(device)
+    else:
+        rec = run_online(args, device)
+    line = json.dumps(rec)
     if args.out:
         Path(args.out).write_text(line + "\n")
     print(line, flush=True)

@@ -613,6 +613,34 @@ def test_without_device_raises(tmp_path, monkeypatch):
         main(["--index-dir", str(tmp_path), "--port", "0"])
 
 
+def test_stopped_server_releases_its_state(tmp_path):
+    """aiohttp keeps each Application it has built middleware for in a
+    module-level cache, so a stopped server's state outlives it. The app's
+    cleanup drops the state's loaded indexes and encoder pool: the served
+    index (device memory on a card) is freed once the caller lets go."""
+    import gc
+    import weakref
+
+    from nextplaid_tpu_torch.api.inprocess import InProcessServer
+    from nextplaid_tpu_torch.client import NextPlaidClient
+    from nextplaid_tpu_torch.index import IndexConfig, create_index
+
+    docs = parity_docs(20)
+    create_index(docs, str(tmp_path / "idx"), IndexConfig(nbits=2), device="cpu")
+    server = InProcessServer(str(tmp_path), device="cpu")
+    try:
+        NextPlaidClient(server.url).search("idx", [docs[3]], top_k=3)
+        served = weakref.ref(server.state.served("idx"))
+        assert served() is not None
+    finally:
+        server.stop()
+    state = server.state
+    del server
+    gc.collect()
+    assert served() is None
+    assert state.served("idx") is None and state.encoder_pool is None
+
+
 def test_in_process_server_serves_and_stops(tmp_path):
     """`InProcessServer` answers through the SDK on the device it is given,
     and `stop()` ends its thread; a server that cannot start raises."""

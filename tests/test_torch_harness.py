@@ -6,7 +6,18 @@
 - scripts/fetch_torch_eval_assets.py: the mini BEIR fixture it regenerates
   equals the committed bytes, its fixture checkpoint equals the JAX
   script's file for file, and the offline dry run passes its gates
-  (NDCG@10 >= 0.85, recall@10 >= 0.95) in both modes.
+  (NDCG@10 >= 0.85, recall@10 >= 0.95) in both modes. Its online path
+  runs against a zip of the mini BEIR fixture served by an `http.server`
+  thread on 127.0.0.1 (nothing reaches past the machine): `_download` gives
+  the JAX script's outcome, file bytes and exception type on the same URL
+  with the right md5, a wrong one and none; `run_online` end to end on the
+  CPU with the fixture checkpoint as --model passes the offline gates,
+  records the JAX record's provenance keys and sends no request on a second
+  run; a --model that is no directory, without `huggingface_hub`, raises a
+  message that names it. The JAX `run_online` is not run end to end (its
+  scripts/eval_beir.py child reaches the reference encoder's missing
+  `import os`): its record's keys come from a run whose child is stood in
+  for.
 - scripts/eval_torch_codesearch.py `--smoke` against scripts/eval_codesearch.py
   on the same planted project: equal metrics, NDCG@10 >= 0.9.
 - scripts/eval_torch_recall.py on a cut corpus (300 docs, 16 queries): the
@@ -20,10 +31,16 @@
   writes only where --out says.
 """
 
+import argparse
 import filecmp
+import hashlib
+import http.server
 import json
 import os
 import sys
+import threading
+import zipfile
+from pathlib import Path
 
 import pytest
 
@@ -97,9 +114,125 @@ def test_offline_dry_run(tmp_path, capsys):
         assert m["ndcg@10"] >= 0.85 and m["recall@10"] >= 0.95, (mode, m)
 
 
-def test_offline_needs_the_flag():
-    with pytest.raises(SystemExit):
-        fetch_torch_eval_assets.main(["--device", "cpu"])
+@pytest.fixture
+def loopback(tmp_path, monkeypatch):
+    """`mini_beir.zip` (the fixture laid out as BEIR's zips lay a dataset:
+    mini_beir/corpus.jsonl, ...) served on 127.0.0.1. Yields (base url, the
+    zip's md5, the paths requested so far)."""
+    for var in ("http_proxy", "https_proxy", "all_proxy", "HTTP_PROXY", "HTTPS_PROXY",
+                "ALL_PROXY"):
+        monkeypatch.delenv(var, raising=False)
+    served = tmp_path / "served"
+    served.mkdir()
+    with zipfile.ZipFile(served / "mini_beir.zip", "w") as z:
+        for f in sorted(fetch_torch_eval_assets.FIXTURE_DIR.rglob("*")):
+            if f.is_file():
+                z.write(f, Path("mini_beir") / f.relative_to(fetch_torch_eval_assets.FIXTURE_DIR))
+    requested = []
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, directory=str(served), **kw)
+
+        def do_GET(self):
+            requested.append(self.path)
+            super().do_GET()
+
+        def log_message(self, *a):
+            pass
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        md5 = hashlib.md5((served / "mini_beir.zip").read_bytes()).hexdigest()
+        yield f"http://127.0.0.1:{server.server_address[1]}", md5, requested
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        assert not thread.is_alive()
+
+
+def _download_outcome(download, url, dest, md5):
+    try:
+        download(url, dest, md5)
+    except Exception as e:  # noqa: BLE001 - the outcome is what is compared
+        error = type(e)
+    else:
+        error = None
+    files = {p.name: p.read_bytes() for p in dest.parent.iterdir()}
+    return error, files
+
+
+@pytest.mark.parametrize("case", ["right md5", "wrong md5", "no md5"])
+def test_download_matches_jax(case, loopback, tmp_path):
+    import fetch_eval_assets
+
+    base, md5, requested = loopback
+    want_md5 = {"right md5": md5, "wrong md5": "0" * 32, "no md5": None}[case]
+    url = f"{base}/mini_beir.zip"
+    outcomes = []
+    for name, download in (("ours", fetch_torch_eval_assets._download),
+                           ("jax", fetch_eval_assets._download)):
+        (tmp_path / name).mkdir()
+        outcomes.append(_download_outcome(download, url, tmp_path / name / "mini_beir.zip",
+                                          want_md5))
+    assert outcomes[0] == outcomes[1]
+    error, files = outcomes[0]
+    if case == "wrong md5":
+        assert error is RuntimeError and files == {}  # no zip, no .part left
+    else:
+        assert error is None and list(files) == ["mini_beir.zip"]
+    assert requested == ["/mini_beir.zip"] * 2
+
+
+def test_online_run(loopback, tmp_path, monkeypatch, capsys):
+    import subprocess
+
+    import fetch_eval_assets
+
+    base, md5, requested = loopback
+    monkeypatch.setattr(fetch_torch_eval_assets, "BEIR_BASE", base)
+    monkeypatch.setattr(fetch_torch_eval_assets, "DATASET_MD5", {"mini_beir": md5})
+    ckpt = fetch_torch_eval_assets.write_fixture_checkpoint(tmp_path / "mini-colbert")
+    argv = ["--dataset", "mini_beir", "--model", str(ckpt), "--assets-dir",
+            str(tmp_path / "assets"), "--device", "cpu", "--out", str(tmp_path / "rec.json")]
+    assert fetch_torch_eval_assets.main(argv) == 0
+    rec = json.loads((tmp_path / "rec.json").read_text())
+    assert rec == _json_lines(capsys)[-1]
+    m = rec["metrics"]
+    assert (rec["mode"], rec["device"], rec["num_documents"]) == ("api", "cpu", 60)
+    assert m["ndcg@10"] >= fetch_torch_eval_assets.MIN_NDCG10, m
+    assert m["recall@10"] >= fetch_torch_eval_assets.MIN_RECALL10, m
+    assert rec["provenance"] == {"dataset_url": f"{base}/mini_beir.zip", "dataset_md5": md5,
+                                 "model": str(ckpt), "model_revision": None}
+    assert requested == ["/mini_beir.zip"]
+    assert (tmp_path / "assets" / "mini_beir" / "corpus.jsonl").is_file()
+    # A second run finds the dataset unpacked: no request.
+    assert fetch_torch_eval_assets.main(argv) == 0
+    assert requested == ["/mini_beir.zip"]
+
+    # The JAX record's provenance keys, its eval child stood in for.
+    def child(cmd, check):
+        Path(cmd[cmd.index("--out") + 1]).write_text("{}")
+
+    monkeypatch.setattr(subprocess, "run", child)
+    monkeypatch.setattr(fetch_eval_assets, "BEIR_BASE", base)
+    jax_rec = fetch_eval_assets.run_online(argparse.Namespace(
+        dataset="mini_beir", model=str(ckpt), assets_dir=str(tmp_path / "assets")))
+    assert rec["provenance"].keys() == jax_rec["provenance"].keys()
+
+
+def test_online_model_needs_huggingface_hub(tmp_path, monkeypatch):
+    import shutil
+
+    shutil.copytree(fetch_torch_eval_assets.FIXTURE_DIR, tmp_path / "assets" / "mini_beir")
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)  # an import of it fails
+    with pytest.raises(RuntimeError, match="huggingface_hub"):
+        fetch_torch_eval_assets.main(["--dataset", "mini_beir", "--model", "org/not-a-dir",
+                                      "--assets-dir", str(tmp_path / "assets"),
+                                      "--device", "cpu"])
 
 
 def test_codesearch_smoke_matches_jax(monkeypatch, capsys):

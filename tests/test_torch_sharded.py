@@ -17,10 +17,12 @@ eight virtual CPU devices (tests/conftest.py).
 2. Parity with the JAX package's sharded functions on one index and the JAX
    8-device mesh: shard layouts array for array; exact and staged
    `search_batch_sharded` top-10 (prune-cut ties allowed, as in
-   tests/test_torch_rq.py); bf16 `search_batch_sharded_grid` scores within
-   RTOL, ATOL = 1e-5, 1e-4, and int8 with the JAX grids carried across
-   (`int8_grid_from_interleaved`: the packages' int8 grids agree within one
-   step); `lloyd_sharded` within 1e-4; both appends (arrays, boundaries,
+   tests/test_torch_rq.py); `search_batch_sharded_grid` scores within RTOL,
+   ATOL = 1e-5, 1e-4 over the JAX shards carried across (`_carried`: the
+   packages' bf16 grids agree within one bf16 rounding, which can move a
+   score past ATOL, and their int8 grids within one step, so the grids
+   themselves are held apart by `test_grid_shards_match_jax`);
+   `lloyd_sharded` within 1e-4; both appends (arrays, boundaries,
    spills, the None cases) and `HostIndexData.load` field for field.
 """
 
@@ -241,14 +243,19 @@ def _grid_pair(corpus, dtype, path=None):
             JP.ShardedGridIndex.shard_grid_only(path, jmesh, dtype))
 
 
-def _carried_int8(ref, mesh):
-    """The port's ShardedGridIndex over the JAX package's int8 shards, each
-    converted to the doc-major layout bit for bit."""
-    grids, scales = zip(*(
-        int8_grid_from_interleaved(
-            torch.from_numpy(np.array(ref.grid[s])),
-            torch.from_numpy(np.array(ref.scales[s]).astype(np.float32)).to(torch.bfloat16))
-        for s in range(ref.n_shards)))
+def _carried(ref, mesh):
+    """The port's ShardedGridIndex over the JAX package's shards: bf16 grids
+    as they are, int8 ones converted to the doc-major layout, bit for bit."""
+    if ref.is_int8:
+        grids, scales = zip(*(
+            int8_grid_from_interleaved(
+                torch.from_numpy(np.array(ref.grid[s])),
+                torch.from_numpy(np.array(ref.scales[s]).astype(np.float32)).to(torch.bfloat16))
+            for s in range(ref.n_shards)))
+    else:
+        grids = [torch.from_numpy(np.array(ref.grid[s]).astype(np.float32)).to(torch.bfloat16)
+                 for s in range(ref.n_shards)]
+        scales = [None] * ref.n_shards
     return ShardedGridIndex(
         mesh=mesh, grids=list(grids), scales=list(scales),
         doclens=[torch.from_numpy(np.array(ref.doclens[s, :, 0])) for s in range(ref.n_shards)],
@@ -265,7 +272,7 @@ def _assert_grids_close(ours, ref):
     for s in range(ours.n_shards):
         np.testing.assert_array_equal(ours.doclens[s].numpy(), np.asarray(ref.doclens[s, :, 0]))
         if ours.is_int8:
-            want, want_s = _carried_int8(ref, ours.mesh).grids[s], _carried_int8(ref, ours.mesh).scales[s]
+            want, want_s = _carried(ref, ours.mesh).grids[s], _carried(ref, ours.mesh).scales[s]
             diff = (ours.grids[s].int() - want.int()).abs()
             assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) > 0.999
             assert torch.equal(ours.scales[s], want_s)
@@ -287,12 +294,11 @@ def test_grid_shards_match_jax(corpus, dtype):
 @pytest.mark.parametrize("subset", [False, True])
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
 def test_grid_search_matches_jax(corpus, dtype, subset):
-    """bf16: the port's own shards; int8: the JAX shards carried across.
-    Scores within RTOL, ATOL."""
+    """The port's search over the JAX shards carried across; scores within
+    RTOL, ATOL."""
     docs, _, _, pmesh = corpus
-    ours_sg, ref_sg = _grid_pair(corpus, dtype)
-    if dtype == "int8":
-        ours_sg = _carried_int8(ref_sg, pmesh)
+    ref_sg = _grid_pair(corpus, dtype)[1]
+    ours_sg = _carried(ref_sg, pmesh)
     queries, targets = make_queries(docs, num_queries=12, seed=7)
     ids = sorted(set(range(1, len(docs), 4)) | set(targets)) if subset else None
     ours = search_batch_sharded_grid(ours_sg, queries, SearchParameters(top_k=10), subset=ids)
@@ -387,8 +393,7 @@ def test_grid_append_matches_jax(corpus, dtype, tmp_path):
     _assert_grids_close(p_grown, j_grown)
     assert ours.num_documents == len(docs)
     queries = [new[2], new[9][:4], docs[5][:4]]
-    if dtype == "int8":
-        p_grown = _carried_int8(j_grown, ours.mesh)
+    p_grown = _carried(j_grown, ours.mesh)
     _assert_same_topk(search_batch_sharded_grid(p_grown, queries, SearchParameters(top_k=10)),
                       JP.search_batch_sharded_grid(j_grown, queries, J.SearchParameters(top_k=10)))
 
