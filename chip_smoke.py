@@ -105,7 +105,7 @@ port's paths:
      search in process and a /documents batch appended in place (no
      reload). Its (d) runs after phase 5: the megascale index as 4 int8 grid
      shards, unrefined top-10 against phase 4's, recall@10.
-  12. the entry points outside the package (this slice's path), last:
+  12. the entry points outside the package (the eleventh slice's path):
      `nextplaid_tpu_torch.entry.entry()`'s staged step against
      `search_batch` (a), `dryrun_multichip(4)` on 4 shards of the card
      ending in its `DRYRUN VERIFIED:` line (b), then the scripts as a user
@@ -124,7 +124,7 @@ port's paths:
      pointed at the loopback server in its process): the zip arrives once,
      md5 checked, the second run requests nothing, a wrong md5 raises and
      leaves no file, and each run passes the offline dry run's gates.
-  14. the CUDA image replayed on the card (this slice's path), last:
+  14. the CUDA image replayed on the card (the twelfth slice's path):
      without docker, a directory holding only docker/Dockerfile.cuda's COPY
      set stands for /app; its build step (the two served kernels and the
      native host library) and import check run there; then the server
@@ -136,6 +136,18 @@ port's paths:
      kernel), each driven over HTTP through the SDK and held against
      in-process search; the servers compile nothing and load the copy's
      libraries.
+  15. the headline benchmark as a user runs it (this slice's path), last:
+     bench_torch.py from the root of this checkout, each step a process of
+     its own: (a) at SciFact scale with a fresh BENCH_IDX, three fresh
+     children (child 1 builds the index, children 2-3 reload it), each a
+     warm-up and 12 pipelined `search_batch_async` passes of 320 queries at
+     windows 2 and 6 through the bf16 kernel, recall@10 against the f32
+     oracle; (b) BENCH_PIN_DTYPE=int8 over the same index (the int8
+     kernel); (c) BENCH_E2E=1, scripts/profile_torch_e2e_composite.py at
+     5,183 texts and 300 queries (server-side encoding, ingest and search
+     over HTTP, API top-10 against the library's). A sitecustomize.py has
+     each of their processes write its launches and peak allocated memory
+     at exit.
   Phases 9 and 10 run after phase 8 and before phases 4-5 (grid-only and
   staged serving at megascale), whose build needs the most memory.
 The megascale path also loads its host arrays twice with the merge cache
@@ -169,12 +181,19 @@ import time
 import numpy as np
 import torch
 
+# The SciFact-shape corpus and the card's dense peaks: bench_torch.py's.
+from bench_torch import (
+    PEAK_BF16_FLOPS,
+    PEAK_INT8_OPS,
+    make_corpus_device,
+    make_doclens,
+    make_queries,
+)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
-# H100 SXM published peaks (dense bf16 and int8 tensor cores, HBM3).
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
+# H100 SXM published HBM3 rate.
 PEAK_HBM_BYTES = 3.35e12
 
 # Kernel vs plain version: both sum exact products in f32, in other orders;
@@ -225,38 +244,6 @@ MUT_EVICT = 100
 # Appended index vs a fresh reload: the same rows decompressed from the same
 # codes, scored by the same kernel; scores within this fraction of the largest.
 MUT_RTOL = 1e-4
-
-
-def make_doclens(num_docs=5183, avg_len=290, seed=0):
-    """SciFact-shaped document lengths (copy of bench.py's)."""
-    rng = np.random.default_rng(seed)
-    return np.clip(rng.normal(avg_len, 40, num_docs), 64, 300).astype(np.int64)
-
-
-def make_corpus(doclens, device, dim=128, n_topics=4096, seed=0):
-    """Clustered unit-norm tokens generated on the card (noise 0.08, ~0.74
-    cosine to their topic, as bench.py's corpus). Returns (tokens [total,
-    dim] f32 on `device`, topics [n_topics, dim] on the host)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    total = int(np.sum(doclens))
-    topics = torch.randn(n_topics, dim, generator=gen, device=device)
-    topics = topics / topics.norm(dim=1, keepdim=True)
-    ids = torch.randint(0, n_topics, (total,), generator=gen, device=device)
-    toks = topics[ids] + 0.08 * torch.randn(total, dim, generator=gen, device=device)
-    toks = toks / toks.norm(dim=1, keepdim=True)
-    return toks, topics.cpu().numpy()
-
-
-def make_queries(topics, num_queries=NUM_QUERIES, tokens=32, dim=128, seed=1):
-    """Topic-mixture queries (copy of bench.py's)."""
-    rng = np.random.default_rng(seed)
-    queries = []
-    for _ in range(num_queries):
-        t = topics[rng.integers(0, len(topics), size=tokens)]
-        q = (t + 0.08 * rng.standard_normal((tokens, dim))).astype(np.float32)
-        q /= np.linalg.norm(q, axis=1, keepdims=True)
-        queries.append(q)
-    return queries
 
 
 def time_ms(fn, reps):
@@ -541,8 +528,9 @@ def check_results(results, n, k=10):
 def scifact_phases(device, mk):
     """The first slice's main path (bf16 pin) and the int8 pin of the same index, then
     the mutation phase on that index. Returns the two kernels' entries of
-    the kernels line, the mutation phase's numbers, and the corpus's topics
-    and queries; leaves a copy of the index as built at SERVICE_SRC."""
+    the kernels line, the mutation phase's numbers, the corpus's topics
+    and queries, and each pin's p50 QPS of the sequential passes; leaves a
+    copy of the index as built at SERVICE_SRC."""
     from nextplaid_tpu_torch.index import (
         DeviceIndex, IndexConfig, SearchParameters, create_index_from_device, search_batch,
     )
@@ -553,7 +541,7 @@ def scifact_phases(device, mk):
     path = os.path.join(WORK_DIR, "scifact_scale")
     try:
         doclens = make_doclens()
-        tokens, topics = make_corpus(doclens, device)
+        tokens, topics = make_corpus_device(doclens, device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         meta = create_index_from_device(tokens, doclens, path, IndexConfig(nbits=4, seed=42))
@@ -585,7 +573,7 @@ def scifact_phases(device, mk):
         q_arr, _ = _pad_queries(queries, index.dim)
         tq = q_arr.shape[1]
         q_dev = torch.from_numpy(q_arr.reshape(-1, index.dim)).to(device)
-        entries = []
+        entries, seq_qps = [], {}
         for label, pinned in (("bf16", index), ("int8", None)):
             if pinned is None:
                 del index, grid
@@ -650,13 +638,15 @@ def scifact_phases(device, mk):
             if recall < floor:
                 raise AssertionError(f"{label} recall@10 {recall} < {floor}")
             entries.append((label, launches, max_err, kernel_ms, plain_ms, bound_ms, bound_by))
+            seq_qps[label] = statistics.median(qps)
         del pinned, unpinned, q_dev, oracle
         gc.collect()
         torch.cuda.empty_cache()
         # The service phase serves this index as built, before the mutations.
         shutil.rmtree(SERVICE_SRC, ignore_errors=True)
         shutil.copytree(path, SERVICE_SRC)
-        return entries, mutation_phase(device, mk, path, topics, queries), (topics, queries)
+        return (entries, mutation_phase(device, mk, path, topics, queries), (topics, queries),
+                seq_qps)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -3233,7 +3223,7 @@ def sharded_phase(device, mk, src_path, topics, queries):
               f"query's top hit)", flush=True)
 
         # (c) sharded k-means on the build's sample, from the build's init.
-        tokens, _ = make_corpus(make_doclens(n0), device)
+        tokens, _ = make_corpus_device(make_doclens(n0), device)
         k = num_partitions_heuristic(float(tokens.shape[0]))
         init = tokens[torch.from_numpy(
             np.random.default_rng(42).permutation(tokens.shape[0])[:k]).to(device)]
@@ -3762,21 +3752,29 @@ DEPLOY_MODEL = "gte-moderncolbert-random"  # a directory under the models volume
 DEPLOY_START_S = 300
 DEPLOY_TEXT_QUERIES = ("protein folding in yeast", "vaccine cohort study",
                        "climate model retrieval", "neuron genome")
-# Runs a replayed `python -m <module> ...` argv as -m does (runpy), and at
-# exit writes the process's MaxSim launch counts and its peak allocated
-# device memory to $CHIP_SMOKE_COUNTS: the server reports neither.
-LAUNCH_HOOK = """\
-import atexit, json, os, runpy, sys
+# At exit, writes the process's MaxSim launch counts, its peak allocated
+# device memory, its argv and whether it is a bench_torch.py measurement child
+# to $CHIP_SMOKE_COUNTS ("{pid}" in the path becomes the process id): neither
+# a server nor the bench reports its launches. Prefixed to LAUNCH_HOOK, and
+# the bench phase's sitecustomize.py, which every process of the bench loads.
+COUNTS_AT_EXIT = """\
+import atexit, json, os, sys
 def _counts():
     mk = sys.modules.get("nextplaid_tpu_torch.ops.maxsim_kernel")
     torch = sys.modules.get("torch")
     out = {"bf16": mk.maxsim_grid_scores.launches if mk else 0,
            "int8": mk.maxsim_grid_scores_int8i.launches if mk else 0,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9
-           if torch is not None and torch.cuda.is_initialized() else 0.0}
-    with open(os.environ["CHIP_SMOKE_COUNTS"], "w") as f:
+           if torch is not None and torch.cuda.is_initialized() else 0.0,
+           "argv": sys.argv, "bench_child": os.environ.get("_BENCH_CHILD") == "1"}
+    with open(os.environ["CHIP_SMOKE_COUNTS"].replace("{pid}", str(os.getpid())), "w") as f:
         json.dump(out, f)
 atexit.register(_counts)
+"""
+# Runs a replayed `python -m <module> ...` argv as -m does (runpy), with
+# COUNTS_AT_EXIT.
+LAUNCH_HOOK = COUNTS_AT_EXIT + """\
+import runpy
 sys.argv = sys.argv[2:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 """
@@ -4028,6 +4026,313 @@ def deploy_phase(device, mk, smi, topics, queries):
         shutil.rmtree(SERVICE_SRC, ignore_errors=True)  # the last phase that reads it
 
 
+BENCH_DIR = os.path.join(ROOT, "build", "chip_smoke_bench")
+BENCH_TIMEOUT_S = 600  # one step: the probe and three children, or the composite
+BENCH_EMBEDDINGS = 1_441_163  # the SciFact-shape corpus's tokens (PERF.md section 4)
+BENCH_MIN_LAUNCHES = 1 + 2 * 12  # the warm-up, then 12 passes at each of two windows
+BENCH_E2E_DOCS, BENCH_E2E_QUERIES = 5183, 300  # the composite's defaults
+E2E_MIN_OVERLAP = 0.8  # the composite's own gate (API top-10 vs the library's)
+E2E_ORACLE_QUERIES = 64  # the composite's library oracle: its first 64 queries
+E2E_CAPTURE_MAX_Q = 16  # a coalesced batch holds at most its 16 workers' queries
+# Appended to the bench phase's sitecustomize.py; acts where CHIP_SMOKE_CAPTURE
+# names a directory (step (c) only). Once the port's modules are imported it
+# wraps (a) the bf16 kernel's launch: the grid of the first launch at most
+# E2E_CAPTURE_MAX_Q queries wide, and each distinct query count's first
+# batch on it, are kept and saved at exit as kernel_args.pt; (b)
+# DeviceIndex.load and search_batch: the first search on an unpinned index
+# (the composite's library oracle) copies the directory last loaded to
+# index/ and its query embeddings to oracle_queries.npy.
+CAPTURE_E2E = """\
+import importlib.abc, importlib.machinery
+_CAP = os.environ.get("CHIP_SMOKE_CAPTURE")
+_cap = {"grid": None, "queries": {}, "loaded": None, "oracle": False}
+def _on_kernel(mk):
+    launch = mk._launch
+    def _launch(queries_flat, grid, doclens, tq):
+        q_n = queries_flat.shape[0] // tq
+        key = (grid.data_ptr(), tuple(grid.shape))
+        if _cap["grid"] is None and q_n <= %(max_q)d:
+            _cap["grid"] = (key, grid.clone(), doclens.clone(), tq)
+        if _cap["grid"] is not None and _cap["grid"][0] == key and q_n not in _cap["queries"]:
+            _cap["queries"][q_n] = queries_flat.clone()
+        return launch(queries_flat, grid, doclens, tq)
+    mk._launch = _launch
+def _on_container(m):
+    load = m.DeviceIndex.load.__func__
+    def _load(cls, path, *args, **kwargs):
+        _cap["loaded"] = path
+        return load(cls, path, *args, **kwargs)
+    m.DeviceIndex.load = classmethod(_load)
+def _on_search(m):
+    search = m.search_batch
+    def search_batch(index, queries, *args, **kwargs):
+        if index.token_grid is None and not _cap["oracle"]:
+            import shutil, numpy
+            _cap["oracle"] = True
+            shutil.copytree(_cap["loaded"], os.path.join(_CAP, "index"))
+            numpy.save(os.path.join(_CAP, "oracle_queries.npy"), numpy.stack(queries))
+        return search(index, queries, *args, **kwargs)
+    m.search_batch = search_batch
+class _AfterImport(importlib.abc.MetaPathFinder):
+    hooks = {"nextplaid_tpu_torch.ops.maxsim_kernel": _on_kernel,
+             "nextplaid_tpu_torch.index.container": _on_container,
+             "nextplaid_tpu_torch.index.search": _on_search}
+    def find_spec(self, name, path=None, target=None):
+        hook = self.hooks.get(name)
+        spec = hook and importlib.machinery.PathFinder.find_spec(name, path)
+        if not spec:
+            return None
+        run = spec.loader.exec_module
+        def exec_module(module):
+            run(module)
+            hook(module)
+        spec.loader.exec_module = exec_module
+        return spec
+def _save():
+    if _cap["grid"] is not None:
+        import torch
+        _, grid, doclens, tq = _cap["grid"]
+        torch.save({"grid": grid.cpu(), "doclens": doclens.cpu(), "tq": tq,
+                    "queries": {n: q.cpu() for n, q in _cap["queries"].items()}},
+                   os.path.join(_CAP, "kernel_args.pt"))
+if _CAP:
+    sys.meta_path.insert(0, _AfterImport())
+    atexit.register(_save)
+""" % {"max_q": E2E_CAPTURE_MAX_Q}
+
+
+def composite_kernel_checks(device, mk, capture):
+    """The bf16 kernel against its plain version at what the composite's
+    server gave it (CAPTURE_E2E's kernel_args.pt): its served grid and one
+    coalesced query batch of each width it launched. Returns (the largest
+    |difference|, the widths, the grid)."""
+    saved = torch.load(os.path.join(capture, "kernel_args.pt"))
+    if not saved["queries"]:
+        raise AssertionError("bench (e2e): the composite's server launched no bf16 kernel "
+                             "on its served grid")
+    grid, doclens = saved["grid"].to(device), saved["doclens"].to(device)
+    widths = sorted(saved["queries"])
+    err = max(check_kernel(mk.maxsim_grid_scores, mk.maxsim_grid_scores_reference,
+                           (saved["queries"][n].to(device), grid, doclens, saved["tq"]),
+                           f"bench (e2e): the server's grid {tuple(grid.shape)}, {n} "
+                           f"coalesced queries")
+              for n in widths)
+    return err, widths, grid
+
+
+def _top10_overlap(a, b):
+    return float(np.mean([len(set(x.passage_ids[:10]) & set(y.passage_ids[:10])) / 10
+                          for x, y in zip(a, b)]))
+
+
+def composite_overlap_causes(device, capture, reported, served_grid):
+    """Takes the composite's API-vs-library top-10 overlap apart on its own
+    index and oracle embeddings (CAPTURE_E2E's copies): the library's
+    default search (the unpinned index) against the server's path (the
+    pinned bf16 grid and its kernel) on the same embeddings; the server's
+    path on each query encoded alone (the server encodes coalesced batches
+    of 1-16) against the oracle's batch of 64; each against the f32
+    exhaustive search; how far below the f32 tenth score each doc lies
+    that the server's top-10 holds and the f32 one does not, beside the
+    largest |server score - f32 score| of a doc both hold; and whether the
+    live rows of `served_grid`, the grid the server launched the kernel
+    on, equal a fresh pin of the same index. Returns the readings."""
+    import importlib.util
+
+    from nextplaid_tpu_torch.index import DeviceIndex, SearchParameters, search_batch
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_e2e_composite", os.path.join(ROOT, "scripts", "profile_torch_e2e_composite.py"))
+    composite = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(composite)
+    oracle_q = list(np.load(os.path.join(capture, "oracle_queries.npy")))
+    index = DeviceIndex.load(os.path.join(capture, "index"), device=device)
+    params = SearchParameters(top_k=10)
+    library = search_batch(index, oracle_q, params)
+    exact = search_batch(index, oracle_q, SearchParameters(top_k=20, mode="exact",
+                                                           stage1_precision="highest"))
+    served = index.with_token_grid()
+    served_64 = search_batch(served, oracle_q, params)
+    encoder, vocab = composite.make_encoder(device)
+    docs = composite.make_text_corpus(vocab, n_docs=BENCH_E2E_DOCS)
+    texts, _ = composite.make_excerpt_queries(docs, n_queries=BENCH_E2E_QUERIES)
+    texts = texts[:len(oracle_q)]
+    again = encoder.encode_queries(texts)
+    alone = [encoder.encode_queries([t])[0] for t in texts]
+    served_1 = search_batch(served, alone, params)
+    gaps, score_err, beyond_20 = [], 0.0, 0
+    for got, want in zip(served_64, exact):
+        f32 = dict(zip(want.passage_ids, want.scores))
+        top10 = set(want.passage_ids[:10])
+        for doc, score in zip(got.passage_ids, got.scores):
+            if doc in top10:
+                score_err = max(score_err, abs(score - f32[doc]))
+            elif doc in f32:
+                gaps.append(want.scores[9] - f32[doc])
+            else:
+                beyond_20 += 1
+    nd = index.num_documents
+    td = min(served_grid.shape[1], served.token_grid.shape[1])
+    out = {
+        "reported": reported,
+        "library_vs_served_same_embeddings": _top10_overlap(library, served_64),
+        "served_alone_vs_served_batch64": _top10_overlap(served_1, served_64),
+        "library_vs_served_alone": _top10_overlap(library, served_1),
+        "library_vs_exact_f32": _top10_overlap(library, exact),
+        "served_vs_exact_f32": _top10_overlap(served_64, exact),
+        "max_abs_emb_batch64_rerun": max(float(np.abs(a - b).max())
+                                         for a, b in zip(again, oracle_q)),
+        "max_abs_emb_alone_vs_batch64": max(float(np.abs(a - b).max())
+                                            for a, b in zip(alone, oracle_q)),
+        "library_route": "exact" if index.num_embeddings <= params.exact_max_embeddings
+        else "staged",
+        "swaps": len(gaps) + beyond_20,
+        "swaps_beyond_f32_top20": beyond_20,
+        "largest_f32_gap_a_swap_crosses": max(gaps, default=0.0),
+        "largest_served_vs_f32_score_diff": score_err,
+        "f32_tenth_scores": [min(w.scores[9] for w in exact), max(w.scores[9] for w in exact)],
+        "served_grid_live_rows_equal_fresh_pin": bool(torch.equal(
+            served_grid[:nd, :td], served.token_grid[:nd, :td])),
+    }
+    del index, served, encoder
+    return out
+
+
+def run_bench(label, env, counts_dir):
+    """`python bench_torch.py` from the root of this checkout under `env`,
+    in a session of its own (a timeout kills its children too); fails on a
+    non-zero exit or a last line that does not parse. Returns (the last
+    line, the counts each of its processes wrote at exit, in exit order,
+    the wall seconds)."""
+    import signal
+
+    os.makedirs(counts_dir)
+    env = dict(env, CHIP_SMOKE_COUNTS=os.path.join(counts_dir, "{pid}.json"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "bench_torch.py"], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"bench ({label}) outlived {BENCH_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench ({label}) exited {proc.returncode}: {out[-2000:]}\n{err[-3000:]}")
+    try:
+        line = json.loads(out.strip().splitlines()[-1])
+    except (json.JSONDecodeError, IndexError):
+        raise AssertionError(f"bench ({label}): the last line does not parse: {out[-2000:]}")
+    procs = []
+    for name in sorted(os.listdir(counts_dir), key=lambda n: os.path.getmtime(
+            os.path.join(counts_dir, n))):
+        with open(os.path.join(counts_dir, name)) as f:
+            procs.append(json.load(f))
+    return line, procs, wall
+
+
+def bench_phase(device, mk, smi, scifact_qps):
+    """bench_torch.py as a user runs it, each step a process of its own from
+    the root of this checkout: (a) at SciFact scale with a fresh BENCH_IDX
+    (child 1 builds it, children 2-3 reload it), (b) BENCH_PIN_DTYPE=int8
+    over the same index, (c) BENCH_E2E=1 at the composite's defaults (5,183
+    texts, 300 queries). A sitecustomize.py at the front of PYTHONPATH has
+    every process of the steps write COUNTS_AT_EXIT. Fails unless each step
+    exits 0 with 3 runs and none failed, 1,441,163 tokens, a pinned grid and
+    recall@10 >= MIN_RECALL (bf16) or MIN_RECALL_INT8 (int8), each
+    measurement child launched its pin's kernel at least BENCH_MIN_LAUNCHES
+    times, (c) passed its overlap gate with its server's launches of the
+    bf16 kernel, and the bf16 kernel agrees with its plain version at the
+    arguments (c)'s server gave it (CAPTURE_E2E). Then (c)'s overlap is
+    taken apart on its own index and oracle embeddings (printed, not
+    gated). `scifact_qps` is the sequential passes' p50 of phases 5-6,
+    printed beside the pipelined ones. Returns (each kernel's launches in
+    the phase, the bf16 kernel's largest |difference| on (c)'s grid)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the bench's processes get the card
+    shutil.rmtree(BENCH_DIR, ignore_errors=True)
+    os.makedirs(BENCH_DIR)
+    try:
+        with open(os.path.join(BENCH_DIR, "sitecustomize.py"), "w") as f:
+            f.write(COUNTS_AT_EXIT + CAPTURE_E2E)
+        pythonpath = [BENCH_DIR] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
+        base = {k: v for k, v in os.environ.items() if not k.startswith(("BENCH_", "_BENCH_", "E2E_"))}
+        base.update(PYTHONPATH=os.pathsep.join(pythonpath),
+                    BENCH_IDX=os.path.join(BENCH_DIR, "scifact_scale"))
+        launches = {"bf16": 0, "int8": 0}
+        for label, floor in (("bf16", MIN_RECALL), ("int8", MIN_RECALL_INT8)):
+            line, procs, wall = run_bench(label, dict(base, BENCH_PIN_DTYPE=label),
+                                          os.path.join(BENCH_DIR, f"counts_{label}"))
+            print(f"bench ({label}) [{smi}]: {json.dumps(line)}", flush=True)
+            d = line.get("detail", {})
+            got = (line.get("metric"), d.get("runs"), d.get("runs_failed"), d.get("num_embeddings"),
+                   d.get("pinned_token_grid"), d.get("pin_dtype"))
+            want = ("scifact_scale_search_qps", 3, 0, BENCH_EMBEDDINGS, True, label)
+            if got != want or not d["recall_at_10_vs_f32_oracle"] >= floor:
+                raise AssertionError(f"bench ({label}): (metric, runs, runs_failed, tokens, pinned, "
+                                     f"pin) {got}, want {want}; recall@10 "
+                                     f"{d.get('recall_at_10_vs_f32_oracle')} (floor {floor})")
+            children = [p for p in procs if p["bench_child"]]
+            if len(children) != 3 or any(p[label] < BENCH_MIN_LAUNCHES for p in children):
+                raise AssertionError(f"bench ({label}): its measurement children launched the "
+                                     f"{label} kernel {[p[label] for p in children]} times (at "
+                                     f"least {BENCH_MIN_LAUNCHES} each, 3 children)")
+            for p in procs:
+                for k in launches:
+                    launches[k] += p[k]
+            print(f"bench ({label}) [{smi}]: p50 {line['value']} QPS (median of the runs' "
+                  f"{d['qps_p50_per_run']}, spread {d['cross_run_spread_pct']}%); per window "
+                  f"per run {d['qps_p50_per_window_per_run']}, best {d['pipeline_windows']}; "
+                  f"beside {scifact_qps[label]:.1f} QPS, the p50 of phase 5-6's sequential "
+                  f"search_batch passes in this run; mfu_pct {d['mfu_pct']}; index_build_s "
+                  f"{d['index_build_s']} ({d['indexing_docs_per_s']} docs/s); recall@10 "
+                  f"{d['recall_at_10_vs_f32_oracle']}; device probes {d['device_probes_per_run']}; "
+                  f"children's peak allocated {[round(p['peak_gb'], 3) for p in children]} GB, "
+                  f"{label} launches {[p[label] for p in children]}; the step {wall:.1f} s",
+                  flush=True)
+
+        capture = os.path.join(BENCH_DIR, "capture_e2e")
+        os.makedirs(capture)
+        line, procs, wall = run_bench("e2e", dict(base, BENCH_E2E="1", CHIP_SMOKE_CAPTURE=capture),
+                                      os.path.join(BENCH_DIR, "counts_e2e"))
+        print(f"bench (e2e) [{smi}]: {json.dumps(line)}", flush=True)
+        d = line.get("detail", {})
+        got = (line.get("metric"), d.get("n_docs"), d.get("n_queries"))
+        want = ("e2e_composite", BENCH_E2E_DOCS, BENCH_E2E_QUERIES)
+        if got != want or not d["api_vs_library_top10_overlap"] >= E2E_MIN_OVERLAP:
+            raise AssertionError(f"bench (e2e): (metric, docs, queries) {got}, want {want}; "
+                                 f"overlap {d.get('api_vs_library_top10_overlap')}")
+        server = [p for p in procs if any("profile_torch_e2e_composite" in a for a in p["argv"])]
+        if len(server) != 1 or server[0]["bf16"] < 1:
+            raise AssertionError(f"bench (e2e): the composite's processes launched {procs}")
+        for p in procs:
+            for k in launches:
+                launches[k] += p[k]
+        print(f"bench (e2e) [{smi}]: {d['search_qps']} QPS with encoding, p50 "
+              f"{d['search_p50_ms']} ms, p95 {d['search_p95_ms']} ms; indexing "
+              f"{d['indexing_docs_per_s']} docs/s ({d['indexing_wall_s']} s); overlap "
+              f"{d['api_vs_library_top10_overlap']}; the server's process: launches bf16 "
+              f"{server[0]['bf16']}, int8 {server[0]['int8']}, peak allocated "
+              f"{server[0]['peak_gb']:.3f} GB; the step {wall:.1f} s", flush=True)
+        err, widths, grid = composite_kernel_checks(device, mk, capture)
+        print(f"bench (e2e) [{smi}]: the bf16 kernel held against its plain version on the "
+              f"composite server's grid {tuple(grid.shape)} at each of its {len(widths)} "
+              f"coalesced batch widths {widths}: max |diff| {err:.3e}", flush=True)
+        causes = composite_overlap_causes(device, capture, d["api_vs_library_top10_overlap"],
+                                          grid)
+        del grid
+        print(f"bench (e2e) [{smi}]: the overlap taken apart on the composite's own index "
+              f"and oracle embeddings: {causes}", flush=True)
+        print(f"bench: the phase {time.perf_counter() - t_phase:.1f} s; launches {launches}",
+              flush=True)
+        return launches, err
+    finally:
+        shutil.rmtree(BENCH_DIR, ignore_errors=True)
+
+
 def kernel_entry(name, source, replaces, launches, max_err, ms, plain_ms, bound_ms, bound_by):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -4094,7 +4399,7 @@ def main() -> int:
     variants = variants_phase(device, mv, mk)
     # Phases 5-6: SciFact scale, bf16 and int8 pins; then the sixth slice's path,
     # mutations of that index.
-    (bf16, _), mutation, (topics, queries) = scifact_phases(device, mk)
+    (bf16, _), mutation, (topics, queries), scifact_qps = scifact_phases(device, mk)
     # Phase 7: the seventh slice's path, text to a searchable index: the
     # encoder, a resumed streamed build, load, and search through the bf16
     # kernel.
@@ -4122,38 +4427,44 @@ def main() -> int:
     # as processes of their own.
     fetch = fetch_phase(device, mk, smi)
     deploy = deploy_phase(device, mk, smi, topics, queries)
+    # Phase 18: the thirteenth slice's path, the headline benchmark as a user
+    # runs it: bench_torch.py bf16, int8 and the composite, its processes
+    # counted through a sitecustomize.py.
+    bench, bench_err = bench_phase(device, mk, smi, scifact_qps)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # Phases 18-19: the kernels line, then the device line. The bf16 kernel's
+    # Phases 19-20: the kernels line, then the device line. The bf16 kernel's
     # launches are the SciFact path's, the staged path's, the mutation
     # phase's, the encoder phase's, the service phase's, the RQ phase's,
     # the sharded phase's (its ranks' too), the harness phase's (its
-    # children's too), the fetch phase's (its children's) and the deploy
-    # phase's (its servers'); its ms, bound and plain ms are the SciFact
-    # pass's, the staged_* keys the stage-4 shape's. The int8 kernel's are
-    # the grid-only path's, the mutation phase's, the service phase's, the
-    # sharded phase's, (d) included, the harness phase's and the deploy
+    # children's too), the fetch phase's (its children's), the deploy
+    # phase's (its servers') and the bench phase's (its processes'); its ms,
+    # bound and plain ms are the SciFact pass's, the staged_* keys the
+    # stage-4 shape's. The int8 kernel's are the grid-only path's, the
+    # mutation phase's, the service phase's, the sharded phase's, (d)
+    # included, the harness phase's, the deploy phase's and the bench
     # phase's.
     bf16_entry = kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:])
     bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged, **mutation["bf16"],
                       **encoder, **service["bf16"], **rq, **sharded["bf16"], **harness["bf16"],
-                      **fetch, **deploy["bf16"])
+                      **fetch, **deploy["bf16"], bench_launches=bench["bf16"],
+                      bench_max_abs_err=bench_err)
     bf16_entry["launches"] += (staged["staged_launches"] + mutation["bf16"]["mutation_launches"]
                                + encoder["encoder_launches"] + service["bf16"]["service_launches"]
                                + rq["rq_launches"] + sharded["bf16"]["sharded_launches"]
                                + harness["bf16"]["harness_launches"] + fetch["fetch_launches"]
-                               + deploy["bf16"]["deploy_launches"])
+                               + deploy["bf16"]["deploy_launches"] + bench["bf16"])
     int8_entry = kernel_entry("maxsim_grid_scores_int8i", "nextplaid_tpu_torch/csrc/maxsim_int8.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:150", *int8)
     int8_entry.update(grid_only_launches=int8_entry["launches"], **mutation["int8"],
                       **service["int8"], **sharded["int8"], **mega, **harness["int8"],
-                      **deploy["int8"])
+                      **deploy["int8"], bench_launches=bench["int8"])
     int8_entry["launches"] += (mutation["int8"]["mutation_launches"]
                                + service["int8"]["service_launches"]
                                + sharded["int8"]["sharded_launches"]
                                + mega["mega_sharded_launches"] + harness["int8"]["harness_launches"]
-                               + deploy["int8"]["deploy_launches"])
+                               + deploy["int8"]["deploy_launches"] + bench["int8"])
     print(json.dumps({"kernels": [bf16_entry, int8_entry, variants]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

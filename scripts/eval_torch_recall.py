@@ -1,6 +1,6 @@
 """Recall sweep of the port against the f32 exhaustive oracle.
 
-Builds the SciFact-shape corpus of chip_smoke.py (5,183 docs of 64-300
+Builds the SciFact-shape corpus of bench_torch.py (5,183 docs of 64-300
 tokens, d 128, made on --device from seed 0; nbits 4), or reuses the index in
 $BENCH_IDX built from that corpus, and 128 of its topic-mixture queries.
 The oracle is the f32 exhaustive scan at "highest" precision. Then, for
@@ -36,7 +36,8 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from chip_smoke import make_corpus, make_doclens, make_queries, recall_at_10  # noqa: E402
+from bench_torch import make_corpus_device, make_doclens, make_queries  # noqa: E402
+from chip_smoke import recall_at_10  # noqa: E402
 
 BATCH = 64
 NPROBES = (1, 2, 4, 8, 16)
@@ -104,7 +105,7 @@ def main(argv=None) -> int:
     from nextplaid_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    tokens, topics = make_corpus(make_doclens(args.docs), device)
+    tokens, topics = make_corpus_device(make_doclens(args.docs), device)
     queries = make_queries(topics, num_queries=args.queries)
     with tempfile.TemporaryDirectory(prefix="eval_idx_") as tmp:
         path = os.environ.get("BENCH_IDX")

@@ -134,7 +134,7 @@ def main() -> int:
                         f"staged cells nprobe 8 keep {args.keep}, {shape}")
         else:
             doclens = chip_smoke.make_doclens()
-            tokens, topics = chip_smoke.make_corpus(doclens, device)
+            tokens, topics = chip_smoke.make_corpus_device(doclens, device)
             create_index_from_device(tokens, doclens, work, IndexConfig(nbits=4, seed=42))
             del tokens
             index = DeviceIndex.load(work).with_token_grid(dtype=args.dtype)

@@ -35,6 +35,7 @@ def _sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "bench_torch.py")
     yield from SCRIPTS
 
 
