@@ -31,6 +31,7 @@ from nextplaid_tpu_torch.storage.npy import (
     load_json,
     load_npy,
 )
+from nextplaid_tpu_torch.utils import trace
 from nextplaid_tpu_torch.utils.device import DeviceLike, resolve_device
 from nextplaid_tpu_torch.utils.errors import StorageError
 from nextplaid_tpu_torch.utils.progress import report as _progress
@@ -404,15 +405,16 @@ def create_index(
                 seed=config.seed if config.seed is not None else 42,
             )
             # "auto" is flat at every K, as in the JAX package.
-            if config.centroid_structure == "rq":
-                rq_book = rq_ops.compute_rq_kmeans(
-                    docs, kcfg, flat_device=dev_flat, device=device
-                )
-                centroids = rq_book.flat_centroids()
-            else:
-                centroids = kmeans_ops.compute_kmeans(
-                    docs, kcfg, flat_device=dev_flat, device=device
-                )
+            with trace.span("build.kmeans", setup=True):
+                if config.centroid_structure == "rq":
+                    rq_book = rq_ops.compute_rq_kmeans(
+                        docs, kcfg, flat_device=dev_flat, device=device
+                    )
+                    centroids = rq_book.flat_centroids()
+                else:
+                    centroids = kmeans_ops.compute_kmeans(
+                        docs, kcfg, flat_device=dev_flat, device=device
+                    )
         _progress("codec")
         artifacts = prepare_codec_artifacts(
             docs, centroids, config, device, rq=rq_book
@@ -460,37 +462,40 @@ def _train_streamed_artifacts(
     buckets on a held-out slice of at most 50K tokens (of the strided RQ
     training sample, as in the JAX package)."""
     _progress("kmeans")
-    k = kmeans_ops.num_partitions_heuristic(float(est_total_tokens))
-    seed = config.seed if config.seed is not None else 42
-    rq_book = None
-    if config.centroid_structure == "rq":
-        if k & (k - 1):
-            k = 1 << (k.bit_length() - 1)
-        c, f = rq_ops.rq_split(k)
-        n_s = int(sample_tokens.shape[0])
-        if n_s > rq_ops.RQ_MAX_TRAIN_TOKENS:
-            sample_tokens = sample_tokens[:: -(-n_s // rq_ops.RQ_MAX_TRAIN_TOKENS)]
-        rq_book = rq_ops.train_rq(
-            sample_tokens, c, f, iters=config.kmeans_niters, seed=seed
-        )
-        centroids = rq_book.flat_centroids()
-    else:
-        rng = np.random.default_rng(seed)
-        n_s = int(sample_tokens.shape[0])
-        k = min(k, n_s)
-        init_idx = torch.from_numpy(rng.permutation(n_s)[:k].astype(np.int64))
-        init = sample_tokens[init_idx.to(sample_tokens.device)]
-        cents = kmeans_ops.lloyd(
-            sample_tokens,
-            init,
-            iters=config.kmeans_niters,
-            assign_chunk=kmeans_ops.assign_chunk_rows(k, floor=512),
-        )
-        cents = cents.cpu().numpy()
-        cents = cents / np.maximum(
-            np.linalg.norm(cents, axis=1, keepdims=True), 1e-12
-        )
-        centroids = cents.astype(np.float32)
+    # The tracer's set-up span `build.kmeans`, read by the benchmark's
+    # setup_kmeans_s; it ends where the centroids are on the host.
+    with trace.span("build.kmeans", setup=True):
+        k = kmeans_ops.num_partitions_heuristic(float(est_total_tokens))
+        seed = config.seed if config.seed is not None else 42
+        rq_book = None
+        if config.centroid_structure == "rq":
+            if k & (k - 1):
+                k = 1 << (k.bit_length() - 1)
+            c, f = rq_ops.rq_split(k)
+            n_s = int(sample_tokens.shape[0])
+            if n_s > rq_ops.RQ_MAX_TRAIN_TOKENS:
+                sample_tokens = sample_tokens[:: -(-n_s // rq_ops.RQ_MAX_TRAIN_TOKENS)]
+            rq_book = rq_ops.train_rq(
+                sample_tokens, c, f, iters=config.kmeans_niters, seed=seed
+            )
+            centroids = rq_book.flat_centroids()
+        else:
+            rng = np.random.default_rng(seed)
+            n_s = int(sample_tokens.shape[0])
+            k = min(k, n_s)
+            init_idx = torch.from_numpy(rng.permutation(n_s)[:k].astype(np.int64))
+            init = sample_tokens[init_idx.to(sample_tokens.device)]
+            cents = kmeans_ops.lloyd(
+                sample_tokens,
+                init,
+                iters=config.kmeans_niters,
+                assign_chunk=kmeans_ops.assign_chunk_rows(k, floor=512),
+            )
+            cents = cents.cpu().numpy()
+            cents = cents / np.maximum(
+                np.linalg.norm(cents, axis=1, keepdims=True), 1e-12
+            )
+            centroids = cents.astype(np.float32)
 
     _progress("codec")
     dim = centroids.shape[1]

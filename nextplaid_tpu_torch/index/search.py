@@ -63,6 +63,7 @@ search with a warning, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -84,6 +85,7 @@ from nextplaid_tpu_torch.index.exact import (
 )
 from nextplaid_tpu_torch.ops.maxsim_kernel import MAX_DOCS, maxsim_grid_scores
 from nextplaid_tpu_torch.ops.rq import pair_scores_topk
+from nextplaid_tpu_torch.utils import trace
 from nextplaid_tpu_torch.utils.errors import SearchError
 
 NEG_INF = float("-inf")
@@ -103,6 +105,15 @@ def _mark(marks: Optional[list], name: str) -> None:
         event = torch.cuda.Event(enable_timing=True)
         event.record()
         marks.append((name, event))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _span(batch: Optional[int], name: str):
+    """The tracer's span of a traced batch; nothing when the batch is not
+    traced (its id is None)."""
+    return _NO_SPAN if batch is None else trace.span(name, batch)
 
 
 @dataclass(frozen=True)
@@ -638,6 +649,7 @@ def _exact_on_candidates_kernel(
     union_ids: torch.Tensor,
     shapes: PipelineShapes,
     marks: Optional[list] = None,
+    counts: Optional[dict] = None,
 ) -> torch.Tensor:
     """Stage 4 via the bf16 MaxSim kernel: score the transient union grid
     exactly like the pinned-grid exhaustive path.
@@ -646,10 +658,19 @@ def _exact_on_candidates_kernel(
     block per tile; the kernel keeps those blocks on chip, so stage 4 pays
     one grid write (3.8 GB bf16 at Cmax 65,536, Td 224, d 128) plus the
     products. Sentinel rows have doclen 0, which the kernel masks by length:
-    they score 0 whatever their rows hold."""
+    they score 0 whatever their rows hold.
+
+    `counts`, when a dict, receives the union grid's token slots (an int)
+    and its live tokens (a device scalar, read back with the batch's
+    results)."""
     q_n, tq, d = queries.shape
     cmax = union_ids.shape[0]
     grid, doclens = _build_union_grid(index, union_ids, shapes)
+    if counts is not None:
+        counts.update({
+            "staged.union_token_slots": grid.shape[0] * shapes.doc_token_cap,
+            "staged.union_live_tokens": doclens.sum(),
+        })
     qflat = (
         torch.where(
             qmask[:, :, None], queries.float(), torch.zeros((), device=grid.device)
@@ -677,12 +698,13 @@ def _exact_on_candidates(
     union_ids: torch.Tensor,
     shapes: PipelineShapes,
     marks: Optional[list] = None,
+    counts: Optional[dict] = None,
 ) -> torch.Tensor:
     """Stage 4: decompress each union candidate ONCE, exact MaxSim against
     the whole query batch. Returns scores [Q, Cmax] (0 for sentinel slots)."""
     if shapes.rerank_kernel:
         return _exact_on_candidates_kernel(
-            index, queries, qmask, union_ids, shapes, marks
+            index, queries, qmask, union_ids, shapes, marks, counts
         )
     q_n, tq, d = queries.shape
     cmax = union_ids.shape[0]
@@ -716,12 +738,15 @@ def search_pipeline(
     subset_mask: Optional[torch.Tensor],  # [num_docs_padded] bool or None
     shapes: PipelineShapes,
     marks: Optional[list] = None,
+    counts: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (doc_ids [Q, top_k] i32 with -1 invalid, scores [Q, top_k] f32,
     overflow [Q] i64). Nothing here waits for the device.
 
     `marks`, when a list, receives (stage name, CUDA event) pairs recorded at
-    the stage boundaries, for timing a batch stage by stage."""
+    the stage boundaries, for timing a batch stage by stage. `counts`, when
+    a dict, receives the stage-4 union grid's live share
+    (`_exact_on_candidates_kernel`)."""
     k = index.num_centroids
     q_n, tq, d = queries.shape
     _mark(marks, "start")
@@ -757,7 +782,9 @@ def search_pipeline(
     _mark(marks, "union")
 
     # Stage 4: exact MaxSim on the union (decompress once per candidate).
-    exact = _exact_on_candidates(index, queries, qmask, union_ids, shapes, marks)
+    exact = _exact_on_candidates(
+        index, queries, qmask, union_ids, shapes, marks, counts
+    )
     valid = (union_ids < index.num_documents)[None, :]
     if mine is not None:
         valid = valid & mine
@@ -809,6 +836,14 @@ def _pad_queries(
     return q_arr, mask
 
 
+# The stage marks each device span of a traced staged batch runs between
+# (the union grid exists on the kernel route alone).
+_STAGE_SPANS = (
+    ("staged.select_prune", "start", "union"),
+    ("staged.union_grid", "union", "stage4_grid"),
+)
+
+
 class PendingSearch:
     """A search batch enqueued on the device but not yet copied back.
 
@@ -818,11 +853,17 @@ class PendingSearch:
     (which waits for the device), runs the union refinement rerank when the
     batch still owes one, applies the staged route's overflow fallback, and
     builds the QueryResults.
+
+    A batch dispatched while tracing was on carries its batch id, and on
+    the staged route its stage marks and union counters, which `result()`
+    records once the results are back; otherwise `batch` is None and
+    `result()` records nothing.
     """
 
     __slots__ = (
         "_index", "_queries", "_params", "_subset",
         "_n", "_ids", "_scores", "_overflow", "_shapes", "_refine_k",
+        "_batch", "_marks", "_counts",
     )
 
     def __init__(
@@ -837,6 +878,9 @@ class PendingSearch:
         overflow: Optional[torch.Tensor] = None,
         shapes: Optional[PipelineShapes] = None,
         refine_k: int = 0,
+        batch: Optional[int] = None,
+        marks: Optional[list] = None,
+        counts: Optional[dict] = None,
     ):
         self._index = index
         self._queries = queries
@@ -848,50 +892,85 @@ class PendingSearch:
         self._overflow = overflow
         self._shapes = shapes
         self._refine_k = refine_k
+        self._batch = batch
+        self._marks = marks
+        self._counts = counts
 
     def result(self) -> List[QueryResult]:
         n = self._n
         if n == 0:
             return []
-        ids = self._ids[:n].cpu().numpy()
-        scores = self._scores[:n].cpu().numpy()
+        with _span(self._batch, "search.result"):
+            return self._result(n)
+
+    def _result(self, n: int) -> List[QueryResult]:
+        batch = self._batch
+        with _span(batch, "search.result.wait"):
+            ids = self._ids[:n].cpu().numpy()
+            scores = self._scores[:n].cpu().numpy()
+            counts = self._counts_back()
+        if batch is not None:
+            self._record(counts)
         if self._refine_k:
-            # Grid-only refinement over the batch's candidate union (the
-            # depth was too large for the per-query device rerank).
-            q_arr, q_mask = _pad_queries(self._queries, self._index.dim)
-            ids, scores = refine_topk(self._index, q_arr, q_mask, ids, self._refine_k)
-        if self._shapes is not None and self._params.overflow_policy == "exact":
-            overflow = int(self._overflow[:n].max().item())
-            if overflow > 0:
-                logging.getLogger(__name__).warning(
-                    "posting-budget overflow: up to %d posting entries dropped "
-                    "(posting_budget=%d) — falling back to exhaustive scoring "
-                    "for this batch; raise SearchParameters.posting_budget or "
-                    "set overflow_policy='prune' (lowest-weight cells dropped) "
-                    "if this recurs",
-                    overflow,
-                    self._shapes.posting_budget,
+            with _span(batch, "search.result.refine"):
+                # Grid-only refinement over the batch's candidate union (the
+                # depth was too large for the per-query device rerank).
+                q_arr, q_mask = _pad_queries(self._queries, self._index.dim)
+                ids, scores = refine_topk(
+                    self._index, q_arr, q_mask, ids, self._refine_k
                 )
-                # Dropping candidates silently biases (or empties) results;
-                # the exhaustive scan is always correct and streams in
-                # bounded tiles, so prefer slow-and-right.
-                return search_batch(
-                    self._index,
-                    self._queries,
-                    dataclasses.replace(self._params, mode="exact"),
-                    subset=self._subset,
+        with _span(batch, "search.result.build"):
+            if self._shapes is not None and self._params.overflow_policy == "exact":
+                overflow = int(self._overflow[:n].max().item())
+                if overflow > 0:
+                    logging.getLogger(__name__).warning(
+                        "posting-budget overflow: up to %d posting entries "
+                        "dropped (posting_budget=%d) — falling back to "
+                        "exhaustive scoring for this batch; raise "
+                        "SearchParameters.posting_budget or set "
+                        "overflow_policy='prune' (lowest-weight cells "
+                        "dropped) if this recurs",
+                        overflow,
+                        self._shapes.posting_budget,
+                    )
+                    # Dropping candidates silently biases (or empties)
+                    # results; the exhaustive scan is always correct and
+                    # streams in bounded tiles, so prefer slow-and-right.
+                    return search_batch(
+                        self._index,
+                        self._queries,
+                        dataclasses.replace(self._params, mode="exact"),
+                        subset=self._subset,
+                    )
+            results = []
+            for i in range(n):
+                valid = ids[i] >= 0
+                results.append(
+                    QueryResult(
+                        query_id=i,
+                        passage_ids=[int(x) for x in ids[i][valid]],
+                        scores=[float(s) for s in scores[i][valid]],
+                    )
                 )
-        results = []
-        for i in range(n):
-            valid = ids[i] >= 0
-            results.append(
-                QueryResult(
-                    query_id=i,
-                    passage_ids=[int(x) for x in ids[i][valid]],
-                    scores=[float(s) for s in scores[i][valid]],
-                )
-            )
-        return results
+            return results
+
+    def _counts_back(self) -> dict:
+        """The traced batch's counters, a device scalar copied back (after
+        the results: the stream has drained)."""
+        return {
+            k: v.item() if torch.is_tensor(v) else v
+            for k, v in (self._counts or {}).items()
+        }
+
+    def _record(self, counts: dict) -> None:
+        batch = self._batch
+        for name, value in counts.items():
+            trace.count(name, value, batch)
+        if self._marks:
+            events = dict(self._marks)
+            for name, a, b in _STAGE_SPANS:
+                if a in events and b in events:
+                    trace.device_span(name, events[a], events[b], batch)
 
     @property
     def overflow(self) -> Optional[torch.Tensor]:
@@ -912,12 +991,28 @@ def search_batch_async(
     subset: Optional[Sequence[int]] = None,
 ) -> PendingSearch:
     """Enqueue a search batch without waiting for the device; call
-    `.result()` on the returned PendingSearch to read it."""
+    `.result()` on the returned PendingSearch to read it.
+
+    While tracing is on (`utils/trace.py`) the batch gets an id, and its
+    dispatch and read are recorded as `search.dispatch` and
+    `search.result` with their phases; off, nothing is recorded."""
     params = params or SearchParameters()
     if params.target_recall is not None:
         params = resolve_target_recall(params)
     if not queries:
         return PendingSearch(index, queries, params, subset, 0, None, None)
+    batch = trace.next_batch() if trace.active() else None
+    with _span(batch, "search.dispatch"):
+        return _dispatch(index, queries, params, subset, batch)
+
+
+def _dispatch(
+    index: DeviceIndex,
+    queries: Sequence[np.ndarray],
+    params: SearchParameters,
+    subset: Optional[Sequence[int]],
+    batch: Optional[int],
+) -> PendingSearch:
     n = len(queries)
     kernel_eligible = index.has_grid and (
         params.kernel == "pallas"
@@ -946,72 +1041,84 @@ def search_batch_async(
         )
         exact_eligible = True
 
-    q_arr, q_mask = _pad_queries(queries, index.dim)
-    subset_t = None
-    if subset is not None:
-        mask = np.zeros(index.num_docs_padded, bool)
-        sids = np.asarray(list(subset), np.int64)
-        sids = sids[(sids >= 0) & (sids < index.num_documents)]
-        mask[sids] = True
-        subset_t = torch.from_numpy(mask).to(index.device)
+    with _span(batch, "search.dispatch.pad"):
+        q_arr, q_mask = _pad_queries(queries, index.dim)
+        subset_np = None
+        if subset is not None:
+            subset_np = np.zeros(index.num_docs_padded, bool)
+            sids = np.asarray(list(subset), np.int64)
+            sids = sids[(sids >= 0) & (sids < index.num_documents)]
+            subset_np[sids] = True
+        q_t = torch.from_numpy(q_arr)
+        # Copy queries to the device in bf16 when every consumer rounds them
+        # to bf16 anyway (the bf16 grid, or the scan at default precision).
+        # The "highest" scan (the f32 oracle), int8 grids (quantized on the
+        # device from f32) and the staged route keep f32.
+        if (
+            exact_eligible
+            and params.stage1_precision != "highest"
+            and not index.grid_is_int8
+        ):
+            q_t = q_t.to(torch.bfloat16)
+    with _span(batch, "search.dispatch.copy"):
+        subset_t = None
+        if subset_np is not None:
+            subset_t = torch.from_numpy(subset_np).to(index.device)
+        q_t = q_t.to(index.device)
+        mask_t = torch.from_numpy(q_mask).to(index.device)
+    with _span(batch, "search.dispatch.route"):
+        if not exact_eligible:
+            shapes = PipelineShapes.derive(index, params, n, q_arr.shape[1])
+            marks = counts = None
+            if batch is not None:
+                # Stage marks are CUDA events: only on a card.
+                marks = [] if index.device.type == "cuda" else None
+                counts = {}
+            ids, scores, overflow = search_pipeline(
+                index, q_t, mask_t, subset_t, shapes, marks=marks, counts=counts
+            )
+            return PendingSearch(
+                index, queries, params, subset, n, ids, scores, overflow, shapes,
+                batch=batch, marks=marks, counts=counts,
+            )
 
-    q_t = torch.from_numpy(q_arr)
-    # Copy queries to the device in bf16 when every consumer rounds them to
-    # bf16 anyway (the bf16 grid, or the scan at default precision). The
-    # "highest" scan (the f32 oracle), int8 grids (quantized on the device
-    # from f32) and the staged route keep f32.
-    if (
-        exact_eligible
-        and params.stage1_precision != "highest"
-        and not index.grid_is_int8
-    ):
-        q_t = q_t.to(torch.bfloat16)
-    q_t = q_t.to(index.device)
-    mask_t = torch.from_numpy(q_mask).to(index.device)
-
-    if not exact_eligible:
-        shapes = PipelineShapes.derive(index, params, n, q_arr.shape[1])
-        ids, scores, overflow = search_pipeline(index, q_t, mask_t, subset_t, shapes)
-        return PendingSearch(
-            index, queries, params, subset, n, ids, scores, overflow, shapes
-        )
-
-    # Grid-only int8 refinement: the kernel stage returns top-R candidates
-    # (SearchParameters.refine_depth; -1 disables, 0 means max(4k, 32)),
-    # re-ranked exactly below or at result() time.
-    refine_k = 0
-    top_k_eff = params.top_k
-    if (
-        index.grid_only
-        and index.grid_is_int8
-        and index.refine_side != "none"
-        and params.refine_depth >= 0
-    ):
-        depth = params.refine_depth or max(4 * params.top_k, 32)
-        top_k_eff = min(max(depth, params.top_k), max(index.num_documents, 1))
-        refine_k = params.top_k
-
-    if index.grid_buckets:
-        ids, scores = exact_search_split(index, q_t, subset_t, top_k=top_k_eff)
-    else:
-        top_k_eff = min(top_k_eff, max(index.num_docs_padded - 1, 1))
-        ids, scores = exact_search_pipeline(
-            index,
-            q_t,
-            mask_t,
-            subset_t,
-            top_k=top_k_eff,
-            doc_tile=default_doc_tile(n, q_arr.shape[1], index.token_axis()),
-            precision=params.stage1_precision,
-            use_kernel=kernel_eligible,
-        )
-    if refine_k and index.refine_side == "device" and top_k_eff <= 128:
-        # Per-query device refine: candidates never leave the device.
-        ids, scores = refine_own_topk_device(index, q_t, mask_t, ids, refine_k)
+        # Grid-only int8 refinement: the kernel stage returns top-R candidates
+        # (SearchParameters.refine_depth; -1 disables, 0 means max(4k, 32)),
+        # re-ranked exactly below or at result() time.
         refine_k = 0
-    return PendingSearch(
-        index, queries, params, subset, n, ids, scores, refine_k=refine_k
-    )
+        top_k_eff = params.top_k
+        if (
+            index.grid_only
+            and index.grid_is_int8
+            and index.refine_side != "none"
+            and params.refine_depth >= 0
+        ):
+            depth = params.refine_depth or max(4 * params.top_k, 32)
+            top_k_eff = min(max(depth, params.top_k), max(index.num_documents, 1))
+            refine_k = params.top_k
+
+        if index.grid_buckets:
+            ids, scores = exact_search_split(index, q_t, subset_t, top_k=top_k_eff)
+        else:
+            top_k_eff = min(top_k_eff, max(index.num_docs_padded - 1, 1))
+            ids, scores = exact_search_pipeline(
+                index,
+                q_t,
+                mask_t,
+                subset_t,
+                top_k=top_k_eff,
+                doc_tile=default_doc_tile(n, q_arr.shape[1], index.token_axis()),
+                precision=params.stage1_precision,
+                use_kernel=kernel_eligible,
+            )
+        if refine_k and index.refine_side == "device" and top_k_eff <= 128:
+            # Per-query device refine: candidates never leave the device.
+            ids, scores = refine_own_topk_device(index, q_t, mask_t, ids, refine_k)
+            refine_k = 0
+        return PendingSearch(
+            index, queries, params, subset, n, ids, scores, refine_k=refine_k,
+            batch=batch,
+        )
 
 
 def search_batch(

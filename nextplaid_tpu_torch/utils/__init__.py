@@ -1,4 +1,4 @@
-"""Shared utilities: errors, progress reporting, device selection."""
+"""Shared utilities: errors, progress reporting, tracing, device selection."""
 
 from nextplaid_tpu_torch.utils.errors import (  # noqa: F401
     CodecError,
