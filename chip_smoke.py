@@ -4,8 +4,9 @@
 
 Builds the three CUDA kernel sources (bf16 MaxSim, int8 MaxSim and the
 MaxSim variant family, all three instances of the wgmma/TMA template of
-csrc/maxsim_wgmma.cuh) from this checkout, one nvcc each, at once, fails on a
-serialized-wgmma warning in the build logs, and holds each kernel against
+csrc/maxsim_wgmma.cuh) from this checkout, one nvcc each, at once, then the
+staged route's union grid (csrc/union_grid.cu), fails on a
+serialized-wgmma warning in the build logs, and holds each MaxSim kernel against
 its plain PyTorch version on the card: the edge cases, a main-path slice and
 the shapes a 64-row tiling can get wrong (TILING_CASES). Then drives the
 port's paths:
@@ -29,9 +30,11 @@ port's paths:
      exhaustive scan of `DeviceIndex.load`;
   5. the staged PLAID pipeline on that full index (`mode="staged"`, the
      operating points of scripts/profile_megascale.py and the "quality"
-     preset), stage 4 through the bf16 MaxSim kernel on the transient union
-     grid: QPS, batch-1 latency, recall@10 against the same oracle, and a
-     batch's time stage by stage.
+     preset), stage 4's transient union grid built by csrc/union_grid.cu and
+     scored by the bf16 MaxSim kernel (one launch of each a batch): QPS,
+     batch-1 latency, recall@10 against the same oracle, a batch's time
+     stage by stage, and both kernels against their plain versions at the
+     largest union.
   6. index mutations at SciFact scale, on the index of phase 2 (this slice's
      path): served loads with append headroom (`capacity_factor=1.5,
      grid_aware_capacity=True`) pinned bf16 and int8, ingest batches of 32
@@ -73,9 +76,10 @@ port's paths:
      `create_index_streamed(centroid_structure="rq")` (train, assign and the
      rest timed apart), `DeviceIndex.load`, staged search at the operating
      points of phase 5 and "quality" with stages 1-2 over the factored
-     codebook and stage 4 through the bf16 kernel, against the flat control
-     (the same index with its rq_* fields None) and the f32 exhaustive
-     oracle.
+     codebook and stage 4 through the union grid and bf16 kernels (each
+     held against its plain version at the largest union), against the flat
+     control (the same index with its rq_* fields None) and the f32
+     exhaustive oracle.
   10. code search (`cgrep`, this slice's path): `ProjectIndexer` over a copy
      of this checkout's files with the encoder at GTE-ModernColBERT-v1's
      widths (random weights from seed 0, a character-fallback WordPiece made
@@ -126,8 +130,9 @@ port's paths:
      leaves no file, and each run passes the offline dry run's gates.
   14. the CUDA image replayed on the card (the twelfth slice's path):
      without docker, a directory holding only docker/Dockerfile.cuda's COPY
-     set stands for /app; its build step (the two served kernels and the
-     native host library) and import check run there; then the server
+     set stands for /app; its build step (the served kernels: both MaxSim
+     kernels and the union grid, and the native host library) and import
+     check run there; then the server
      starts from the image's ENTRYPOINT and docker-compose.yml's command
      and environment (docker-compose.cuda.yml laid over it; the volumes
      mapped to the SciFact index and a model directory at
@@ -790,7 +795,7 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
             raise AssertionError(f"grid-only recall@10 refined {r_ref} < {MIN_RECALL} or "
                                  f"unrefined {r_raw} < {MIN_RECALL_INT8}")
         # This slice's main path: staged search over the same full index.
-        staged = staged_phase(full, device, mk, batches, queries, oracle)
+        staged = staged_phase(full, device, mk, batches, queries, oracle)  # (bf16, union grid)
         del full
         gc.collect()
         torch.cuda.empty_cache()
@@ -1118,11 +1123,9 @@ def assert_same_topk(got, want, tol, label, atol=None):
     return gap
 
 
-def stage4_kernel_args(index, queries, qmask, shapes):
-    """The bf16 kernel's arguments at stage 4 of `search_pipeline` on a
-    flat-centroid index: stages 1-3 as the pipeline runs them, then its
-    union grid and its masked bf16 queries. Returns (args, docs in the
-    union)."""
+def stage4_union(index, queries, qmask, shapes):
+    """The batch's union of candidate ids at stage 4 of `search_pipeline` on
+    a flat-centroid index: stages 1-3 as the pipeline runs them."""
     from nextplaid_tpu_torch.index import search as S
 
     q_n, tq, d = queries.shape
@@ -1135,7 +1138,19 @@ def stage4_kernel_args(index, queries, qmask, shapes):
     cells, weights = S._dedup_cells(*S._select_cells(s_masked, qmask, shapes, k), k)
     union_ids, _, _ = S._prune_candidates(index, cells, weights, shapes, s_masked=s_masked,
                                           qmask=qmask, queries=queries)
-    del s_masked
+    return union_ids
+
+
+def stage4_kernel_args(index, queries, qmask, shapes, union_ids=None):
+    """The bf16 kernel's arguments at stage 4 of `search_pipeline` on a
+    flat-centroid index: its union grid (of `union_ids`, else of
+    `stage4_union`) and its masked bf16 queries. Returns (args, docs in the
+    union)."""
+    from nextplaid_tpu_torch.index import search as S
+
+    q_n, tq, d = queries.shape
+    if union_ids is None:
+        union_ids = stage4_union(index, queries, qmask, shapes)
     grid, doclens = S._build_union_grid(index, union_ids, shapes)
     qflat = torch.where(qmask[:, :, None], queries.float(), torch.zeros((), device=grid.device))
     args = (qflat.reshape(q_n * tq, d).to(torch.bfloat16), grid, doclens, tq)
@@ -1155,15 +1170,84 @@ def exact_grid_args(index, queries):
     return q_dev, index.token_grid, lens, q_arr.shape[1]
 
 
+UNION_CHECK_ROWS = 4096  # grid rows compared at once
+
+
+def union_grid_check(index, union_ids, shapes, label):
+    """csrc/union_grid.cu against its plain version (`_build_union_grid_eager`)
+    on one union of a path: doclens and dead slots (token rows past a doc's
+    length, rows past Cmax) exact, live elements within one bf16 ulp. Both
+    timed (CUDA events), beside the bound of the bytes the build moves at
+    the HBM rate: the whole grid written, each live token's code and packed
+    residual and the centroid table read once, and the ids and doclens
+    (`live_bound_ms` writes live slots only). Returns the kernel's numbers
+    for the kernels line; the launches of the check and the timing are
+    taken off the kernel's count."""
+    from nextplaid_tpu_torch.index import search as S
+    from nextplaid_tpu_torch.ops import union_grid as U
+
+    before = U.union_grid.launches
+    grid, lens = S._build_union_grid(index, union_ids, shapes)
+    if U.union_grid.launches != before + 1:
+        raise AssertionError(f"{label}: _build_union_grid did not launch the union grid kernel")
+    want_grid, want_lens = S._build_union_grid_eager(index, union_ids, shapes)
+    if grid.shape != want_grid.shape or not torch.equal(lens, want_lens):
+        raise AssertionError(f"{label}: union grid {tuple(grid.shape)} or its doclens differ "
+                             f"from the eager loop's {tuple(want_grid.shape)}")
+    td = shapes.doc_token_cap
+    t_ar = torch.arange(grid.shape[1], device=grid.device)
+    dead_nonzero = same = n_live = max_ulp = 0
+    max_err = 0.0
+    for r in range(0, grid.shape[0], UNION_CHECK_ROWS):
+        g, w = grid[r : r + UNION_CHECK_ROWS], want_grid[r : r + UNION_CHECK_ROWS]
+        live = t_ar[None, :] < torch.clamp(lens[r : r + UNION_CHECK_ROWS], max=td)[:, None]
+        dead_nonzero += int(torch.count_nonzero(g[~live]))
+        got, want = g[live], w[live]
+        if not got.numel():
+            continue
+        ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+        same += int((ulps == 0).sum())
+        n_live += got.numel()
+        max_ulp = max(max_ulp, int(ulps.max()))
+        max_err = max(max_err, float((got.float() - want.float()).abs().max()))
+    del want_grid, want_lens
+    share = same / max(n_live, 1)
+    if dead_nonzero or max_ulp > 1:
+        raise AssertionError(f"{label}: union grid kernel vs eager loop: {dead_nonzero} nonzero "
+                             f"dead elements, max {max_ulp} bf16 ulp")
+    kernel_ms = time_ms(lambda: S._build_union_grid(index, union_ids, shapes), reps=5)
+    plain_ms = time_ms(lambda: S._build_union_grid_eager(index, union_ids, shapes), reps=1)
+    U.union_grid.launches = before
+    rows, td_k, d = grid.shape
+    live_tokens = int(torch.clamp(lens, max=td).sum())
+    reads = (live_tokens * (4 + d * index.nbits // 8) + index.num_centroids * d * 4 + rows * 12)
+    bound_ms = 1e3 * (rows * td_k * d * 2 + reads) / PEAK_HBM_BYTES
+    live_bound_ms = 1e3 * (live_tokens * d * 2 + reads) / PEAK_HBM_BYTES
+    print(f"union grid kernel [{label}]: grid {tuple(grid.shape)} of {union_ids.shape[0]} ids, "
+          f"nbits {index.nbits}, {live_tokens} live tokens "
+          f"({100 * live_tokens / (rows * td_k):.2f}% of the slots); doclens and dead slots exact, "
+          f"live elements bit-identical {share:.6f}, max {max_ulp} ulp (max abs {max_err:.3g}); "
+          f"kernel {kernel_ms:.3f} ms, eager loop {plain_ms:.3f} ms, bytes bound {bound_ms:.3f} ms "
+          f"({100 * bound_ms / kernel_ms:.1f}% of it; live slots only {live_bound_ms:.3f} ms)",
+          flush=True)
+    return {"max_abs_err": max_err, "max_ulp": max_ulp, "bit_identical_share": share,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "live_bound_ms": live_bound_ms, "shape": list(grid.shape),
+            "live_tokens": live_tokens}
+
+
 def staged_phase(full, device, mk, batches, queries, oracle):
     """This slice's main path at full width: staged PLAID search over the
-    full 473,000-doc index, stage 4 through the bf16 MaxSim kernel. Returns
-    the kernel's staged numbers for the kernels line."""
+    full 473,000-doc index, its union grid built by csrc/union_grid.cu and
+    scored by the bf16 MaxSim kernel, one launch of each a batch. Returns
+    the bf16 kernel's staged numbers and the union grid kernel's for the
+    kernels line."""
     from nextplaid_tpu_torch.index import SearchParameters, search_batch, search_batch_async
     from nextplaid_tpu_torch.index import search as S
     from nextplaid_tpu_torch.index.config import resolve_target_recall
+    from nextplaid_tpu_torch.ops import union_grid as U
 
-    kernel = mk.maxsim_grid_scores
+    kernel, union = mk.maxsim_grid_scores, U.union_grid
     q_arr, q_mask = S._pad_queries(batches[0], full.dim)
     q_dev = torch.from_numpy(q_arr).to(device)
     m_dev = torch.from_numpy(q_mask).to(device)
@@ -1171,12 +1255,12 @@ def staged_phase(full, device, mk, batches, queries, oracle):
               for label, kw, recorded in STAGED_POINTS]
     points.append(('preset "quality"', SearchParameters.preset("quality", **STAGED_COMMON),
                    MIN_RECALL_QUALITY))
-    total_launches = 0
+    total_launches = union_launches = 0
     for label, params, floor in points:
         resolved = resolve_target_recall(params)
         search_batch(full, batches[0], params)  # warm-up
         torch.cuda.synchronize()
-        kernel.launches = 0
+        kernel.launches = union.launches = 0
         pass_s, out, pending = [], None, None
         for _ in range(STAGED_PASSES):
             torch.cuda.synchronize()
@@ -1185,11 +1269,13 @@ def staged_phase(full, device, mk, batches, queries, oracle):
                        for i in range(MEGA_IN_FLIGHT)]
             out = [p.result() for p in pending]
             pass_s.append(time.perf_counter() - t0)
-        launches = kernel.launches
-        if launches != STAGED_PASSES * MEGA_IN_FLIGHT:
-            raise AssertionError(f"staged [{label}] launched the bf16 kernel {launches} times in "
+        launches, u_launches = kernel.launches, union.launches
+        if launches != STAGED_PASSES * MEGA_IN_FLIGHT or u_launches != launches:
+            raise AssertionError(f"staged [{label}] launched the bf16 kernel {launches} times and "
+                                 f"the union grid kernel {u_launches} times in "
                                  f"{STAGED_PASSES * MEGA_IN_FLIGHT} batches")
         total_launches += launches
+        union_launches += u_launches
         check_results(out[0], MEGA_BATCH)
         shapes = pending[0].shapes
         if shapes is None or not shapes.rerank_kernel:
@@ -1221,27 +1307,30 @@ def staged_phase(full, device, mk, batches, queries, oracle):
               f"{overflow}; per batch ms: stages 1-2 {stage['stage12']:.3f}, 3 {stage['stage3']:.3f}, "
               f"3b {stage['stage3b']:.3f}, union {stage['union']:.3f}, grid build "
               f"{stage['stage4_grid']:.3f}, stage-4 kernel {stage['stage4_kernel']:.3f}, 5 "
-              f"{stage['stage5']:.3f}; kernel launches {launches} (one per batch)", flush=True)
+              f"{stage['stage5']:.3f}; kernel launches {launches} bf16, {u_launches} union grid "
+              f"(one each per batch)", flush=True)
         if recall < floor:
             raise AssertionError(f"staged [{label}] recall@10 {recall} < {floor}")
 
     # Once: the scan route (kernel="xla") returns the same top-10.
     label, kw, _ = STAGED_POINTS[0]
     by_kernel = search_batch(full, batches[0], SearchParameters(**STAGED_COMMON, **kw))
-    before = kernel.launches
+    before = (kernel.launches, union.launches)
     by_scan = search_batch(full, batches[0], SearchParameters(kernel="xla", **STAGED_COMMON, **kw))
-    if kernel.launches != before:
-        raise AssertionError('kernel="xla" launched the bf16 kernel')
+    if (kernel.launches, union.launches) != before:
+        raise AssertionError('kernel="xla" launched the bf16 or the union grid kernel')
     assert_same_topk(by_kernel, by_scan, STAGE4_TOL, f"staged [{label}] kernel vs scan route")
     print(f"staged [{label}]: the scan route (kernel=\"xla\") returns the same top-10 as the kernel "
           f"route (tie rule, tolerance {STAGE4_TOL})", flush=True)
 
-    # The kernel alone at the stage-4 shape (the largest union grid), beside
-    # its plain version and its bound.
+    # Both kernels alone at the stage-4 shape (the largest union grid),
+    # beside their plain versions and their bounds.
     label, kw, _ = STAGED_POINTS[1]
     params = SearchParameters(**STAGED_COMMON, **kw)
     shapes = S.PipelineShapes.derive(full, params, MEGA_BATCH, q_arr.shape[1])
-    args, n_union = stage4_kernel_args(full, q_dev, m_dev, shapes)
+    union_ids = stage4_union(full, q_dev, m_dev, shapes)
+    union_numbers = union_grid_check(full, union_ids, shapes, f"staged stage 4 [{label}]")
+    args, n_union = stage4_kernel_args(full, q_dev, m_dev, shapes, union_ids=union_ids)
     _, grid, doclens, _ = args
     max_err = check_kernel(kernel, mk.maxsim_grid_scores_reference, args,
                            f"stage-4 union grid {tuple(grid.shape)}, {MEGA_BATCH}q")
@@ -1254,9 +1343,10 @@ def staged_phase(full, device, mk, batches, queries, oracle):
           f"{100 * tile_waste(doclens.clamp(max=grid.shape[1])):.1f}%), dense-grid bound {dense_ms:.3f} "
           f"ms, plain version {plain_ms:.3f} ms; staged kernel launches in all {total_launches}",
           flush=True)
-    return {"staged_launches": total_launches, "staged_max_abs_err": max_err,
-            "staged_ms": kernel_ms, "staged_plain_ms": plain_ms, "staged_bound_ms": bound_ms,
-            "staged_bound_by": bound_by, "staged_shape": list(grid.shape)}
+    return ({"staged_launches": total_launches, "staged_max_abs_err": max_err,
+             "staged_ms": kernel_ms, "staged_plain_ms": plain_ms, "staged_bound_ms": bound_ms,
+             "staged_bound_by": bound_by, "staged_shape": list(grid.shape)},
+            {"staged_launches": union_launches, **union_numbers})
 
 
 class _Messages(logging.Handler):
@@ -2463,13 +2553,14 @@ def staged_point_runs(index, batches, params, kernel, q_dev, m_dev):
     """One operating point on one index: STAGED_PASSES passes of
     MEGA_IN_FLIGHT batches in flight, then one batch stage by stage (median
     of 3 runs, CUDA events). Returns (first batch's results, QPS list,
-    kernel launches, stage ms dict, shapes)."""
+    (bf16 kernel, union grid kernel) launches, stage ms dict, shapes)."""
     from nextplaid_tpu_torch.index import search_batch, search_batch_async
     from nextplaid_tpu_torch.index import search as S
+    from nextplaid_tpu_torch.ops import union_grid as U
 
     search_batch(index, batches[0], params)  # warm-up
     torch.cuda.synchronize()
-    kernel.launches = 0
+    kernel.launches = U.union_grid.launches = 0
     pass_s, out, pending = [], None, None
     for _ in range(STAGED_PASSES):
         torch.cuda.synchronize()
@@ -2478,7 +2569,7 @@ def staged_point_runs(index, batches, params, kernel, q_dev, m_dev):
                    for i in range(MEGA_IN_FLIGHT)]
         out = [p.result() for p in pending]
         pass_s.append(time.perf_counter() - t0)
-    launches = kernel.launches
+    launches = (kernel.launches, U.union_grid.launches)
     shapes = pending[0].shapes
     if shapes is None or not shapes.rerank_kernel:
         raise AssertionError("staged search did not take the stage-4 kernel route")
@@ -2503,7 +2594,9 @@ def rq_phase(device, mk, n_docs=RQ_DOCS):
     ranks approx_score="codes" by the cell weights (as the JAX package
     does), so at a "codes" point the gate's control runs the flat index at
     "cells" with the same keep; the flat control at the point's own
-    parameters is printed beside it. Returns the bf16 kernel's RQ numbers."""
+    parameters is printed beside it. The union grid kernel builds each
+    batch's stage-4 grid on both. Returns the bf16 kernel's RQ numbers and
+    the union grid kernel's."""
     from nextplaid_tpu_torch.index import (
         DeviceIndex, IndexConfig, SearchParameters, create_index_streamed, search_batch,
     )
@@ -2568,7 +2661,7 @@ def rq_phase(device, mk, n_docs=RQ_DOCS):
         points = [(label, SearchParameters(**STAGED_COMMON, **kw))
                   for label, kw, _ in STAGED_POINTS]
         points.append(('preset "quality"', SearchParameters.preset("quality", **STAGED_COMMON)))
-        rq_launches = flat_launches = 0
+        rq_launches = flat_launches = union_launches = 0
         for label, params in points:
             resolved = resolve_target_recall(params)
             got, qps, launches, stage, shapes = staged_point_runs(
@@ -2583,11 +2676,14 @@ def rq_phase(device, mk, n_docs=RQ_DOCS):
                 gate = recall_at_10(search_batch(flat, batches[0], cells), oracle)
                 gate_note = f" (flat at cells keep {shapes.prune_keep}: {gate:.4f})"
             want = STAGED_PASSES * MEGA_IN_FLIGHT
-            if launches != want or ctl_launches != want:
-                raise AssertionError(f"rq [{label}] launched the bf16 kernel {launches} (RQ) / "
-                                     f"{ctl_launches} (flat) times in {want} batches")
+            if launches != (want, want) or ctl_launches != (want, want):
+                raise AssertionError(f"rq [{label}] launched the bf16 and union grid kernels "
+                                     f"{launches} (RQ) / {ctl_launches} (flat) times in {want} "
+                                     f"batches")
+            (launches, u_rq), (ctl_launches, u_flat) = launches, ctl_launches
             rq_launches += launches
             flat_launches += ctl_launches
+            union_launches += u_rq + u_flat
             check_results(got, MEGA_BATCH)
             recall = recall_at_10(got, oracle)
             rest = sum(v for n, v in stage.items() if n != "stage12")
@@ -2599,13 +2695,13 @@ def rq_phase(device, mk, n_docs=RQ_DOCS):
                   f"{stage['stage4_kernel']:.3f} ms); p50 {statistics.median(qps):.2f} QPS RQ vs "
                   f"{statistics.median(ctl_qps):.2f} flat; recall@10 {recall:.4f} RQ vs "
                   f"{ctl_recall:.4f} flat{gate_note}; kernel launches {launches} RQ + "
-                  f"{ctl_launches} flat", flush=True)
+                  f"{ctl_launches} flat, union grid {u_rq} RQ + {u_flat} flat", flush=True)
             floor = gate - RECALL_SLACK
             if recall < floor:
                 raise AssertionError(f"rq [{label}] recall@10 {recall} < {floor}")
 
-        # The kernel alone at the RQ path's stage-4 shape (the largest union
-        # grid), beside its plain version and its bound.
+        # Both kernels alone at the RQ path's stage-4 shape (the largest union
+        # grid), beside their plain versions and their bounds.
         label, kw, _ = STAGED_POINTS[1]
         params = SearchParameters(**STAGED_COMMON, **kw)
         shapes = S.PipelineShapes.derive(full, params, MEGA_BATCH, q_arr.shape[1])
@@ -2613,6 +2709,7 @@ def rq_phase(device, mk, n_docs=RQ_DOCS):
                                         full.num_centroids, threshold=shapes.threshold)
         union_ids, _, _ = S._prune_candidates(full, cells, weights, shapes, qmask=m_dev,
                                               queries=q_dev)
+        union_numbers = union_grid_check(full, union_ids, shapes, f"rq stage 4 [{label}]")
         grid, doclens = S._build_union_grid(full, union_ids, shapes)
         tq = q_arr.shape[1]
         args = (q_dev.reshape(-1, full.dim).to(torch.bfloat16), grid, doclens, tq)
@@ -2630,8 +2727,9 @@ def rq_phase(device, mk, n_docs=RQ_DOCS):
         del full, flat, grid, doclens
         gc.collect()
         torch.cuda.empty_cache()
-        return {"rq_launches": rq_launches, "rq_max_abs_err": max_err, "rq_ms": kernel_ms,
-                "rq_plain_ms": plain_ms, "rq_bound_ms": bound_ms, "rq_bound_by": bound_by}
+        return ({"rq_launches": rq_launches, "rq_max_abs_err": max_err, "rq_ms": kernel_ms,
+                 "rq_plain_ms": plain_ms, "rq_bound_ms": bound_ms, "rq_bound_by": bound_by},
+                {"rq_launches": union_launches, **{f"rq_{k}": v for k, v in union_numbers.items()}})
     finally:
         shutil.rmtree(RQ_DIR, ignore_errors=True)
 
@@ -3847,7 +3945,7 @@ def deploy_phase(device, mk, smi, topics, queries):
                                      f"{out.stderr[-3000:]}")
         build_dir = app / "build" / "nextplaid_tpu_torch"
         built = {p.name: p.stat().st_mtime_ns for p in build_dir.iterdir()}
-        want_libs = {f"{src.stem}-{mk.build_tag(src)}.so" for src in (mk.SOURCE, mk.SOURCE_INT8)}
+        want_libs = {f"{src.stem}-{mk.build_tag(src)}.so" for src in mk.SERVED_SOURCES}
         want_libs.add(native.library_path().name)
         if not want_libs <= set(built):
             raise AssertionError(f"deploy: the build step left {sorted(built)}, not {want_libs}")
@@ -3855,7 +3953,7 @@ def deploy_phase(device, mk, smi, topics, queries):
             if "serialized" in log.read_text():
                 raise AssertionError(f"deploy: ptxas serialized wgmma in {log.name}")
         print(f"deploy build [{smi}]: {len(copied)} files of the COPY set "
-              f"{image.copy_set}; build step {steps['build step']:.2f} s (nvcc x2 at once, g++), "
+              f"{image.copy_set}; build step {steps['build step']:.2f} s (nvcc x3 at once, g++), "
               f"import check {steps['import check']:.2f} s; {app.name}/build/nextplaid_tpu_torch: "
               f"{', '.join(sorted(built))}", flush=True)
 
@@ -3978,10 +4076,10 @@ def deploy_phase(device, mk, smi, topics, queries):
 
             libs = mapped_libraries(proc.pid)
             ours = {Path(x).name for x in libs if Path(x).parent == build_dir}
-            foreign = [x for x in libs if ("maxsim_" in x or "nextplaid_host" in x)
+            foreign = [x for x in libs if ("maxsim_" in x or "union_grid" in x
+                                           or "nextplaid_host" in x)
                        and Path(x).parent != build_dir]
-            need = {f"{mk.SOURCE.stem}-{mk.build_tag(mk.SOURCE)}.so",
-                    f"{mk.SOURCE_INT8.stem}-{mk.build_tag(mk.SOURCE_INT8)}.so"}
+            need = {f"{src.stem}-{mk.build_tag(src)}.so" for src in mk.SERVED_SOURCES}
             if dtype == "bf16":  # the full load merges the chunks natively
                 need.add(native.library_path().name)
             if foreign or not need <= ours:
@@ -4357,15 +4455,18 @@ def main() -> int:
     print(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible", flush=True)
 
-    # Phase 2: build the three kernel libraries from the sources in this
-    # checkout, one nvcc each, started together.
+    # Phase 2: build the three MaxSim libraries from the sources in this
+    # checkout, one nvcc each, started together, then the union grid's.
     from nextplaid_tpu_torch.ops import maxsim_variants as mv
+    from nextplaid_tpu_torch.ops import union_grid as ug
 
     t0 = time.perf_counter()
     libs = mk.build_all()
     mk._library()
     mk._library_int8()
     mv._library()
+    libs[ug.SOURCE.stem] = mk.build_library(ug.SOURCE)
+    ug._library()
     build_s = time.perf_counter() - t0
     for lib_path in libs.values():
         log = lib_path.with_suffix(".log").read_text().splitlines()
@@ -4412,13 +4513,13 @@ def main() -> int:
     service = service_phase(device, mk, SERVICE_SRC, topics, queries)
     # Phases 10-11: the ninth slice's paths, the RQ codebook at its own
     # operating point, then code search over this checkout.
-    rq = rq_phase(device, mk)
+    rq, rq_union = rq_phase(device, mk)
     codesearch_phase(device, mk)
     # Phases 12-14: grid-only int8 serving at scale (with the native merge and
     # the merge cache on its host load), then the third slice's main path:
     # staged search over the same corpus's full index, then that corpus as
     # sharded int8 grids (the sharded phase's (d)).
-    int8, staged, mega = grid_only_phase(device, mk)
+    int8, (staged, staged_union), mega = grid_only_phase(device, mk)
     # Phase 15: the eleventh slice's path, the entry points outside the
     # package: entry() and the dry run in this process, then the scripts.
     harness = harness_phase(device, mk, smi, topics)
@@ -4443,7 +4544,9 @@ def main() -> int:
     # stage-4 shape's. The int8 kernel's are the grid-only path's, the
     # mutation phase's, the service phase's, the sharded phase's, (d)
     # included, the harness phase's, the deploy phase's and the bench
-    # phase's.
+    # phase's. The union grid kernel's are the staged path's and the RQ
+    # phase's (RQ and flat control); its check and times are the staged
+    # stage-4 shape's, the rq_* keys the RQ one's.
     bf16_entry = kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:])
     bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged, **mutation["bf16"],
@@ -4465,7 +4568,14 @@ def main() -> int:
                                + sharded["int8"]["sharded_launches"]
                                + mega["mega_sharded_launches"] + harness["int8"]["harness_launches"]
                                + deploy["int8"]["deploy_launches"] + bench["int8"])
-    print(json.dumps({"kernels": [bf16_entry, int8_entry, variants]}), flush=True)
+    union_entry = kernel_entry("union_grid", "nextplaid_tpu_torch/csrc/union_grid.cu",
+                               "nextplaid_tpu_torch/index/search.py:_build_union_grid_eager",
+                               staged_union["staged_launches"] + rq_union["rq_launches"],
+                               staged_union["max_abs_err"], staged_union["ms"],
+                               staged_union["plain_ms"], staged_union["bound_ms"], "bytes")
+    union_entry.update({k: v for k, v in staged_union.items()
+                        if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms")}, **rq_union)
+    print(json.dumps({"kernels": [bf16_entry, int8_entry, variants, union_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}), flush=True)

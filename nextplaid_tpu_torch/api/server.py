@@ -1182,9 +1182,10 @@ def build_app(index_dir: str, encoder=None, device=None) -> web.Application:
     r.add_post("/rerank_with_encoding", rerank_with_encoding)
 
     if state.device.type == "cuda":
-        # Build and load both MaxSim kernels before the first request: a
-        # cold build is tens of seconds of nvcc, which would otherwise land
-        # inside the first searches.
+        # Build and load the served kernels (both MaxSim kernels and the
+        # staged route's union grid) before the first request: a cold build
+        # is tens of seconds of nvcc, which would otherwise land inside the
+        # first searches.
         async def _load_kernels(app):
             from nextplaid_tpu_torch.ops import maxsim_kernel
 

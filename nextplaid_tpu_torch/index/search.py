@@ -34,8 +34,9 @@ Staged route (`mode="staged"`, or `"auto"` on an unpinned index above
                                         down to `prune_keep`
   stage 4  union + shared exact scoring `_exact_on_candidates`: the batch's
                                         survivors are decompressed ONCE, into
-                                        a transient bf16 grid scored by the
-                                        bf16 MaxSim kernel
+                                        a transient bf16 grid (one launch of
+                                        csrc/union_grid.cu on a card) scored
+                                        by the bf16 MaxSim kernel
                                         (`_exact_on_candidates_kernel`) or
                                         tile by tile with a matmul scan
   stage 5  top-k
@@ -83,6 +84,7 @@ from nextplaid_tpu_torch.index.exact import (
     refine_own_topk_device,
     refine_topk,
 )
+from nextplaid_tpu_torch.ops import union_grid as union_grid_ops
 from nextplaid_tpu_torch.ops.maxsim_kernel import MAX_DOCS, maxsim_grid_scores
 from nextplaid_tpu_torch.ops.rq import pair_scores_topk
 from nextplaid_tpu_torch.utils import trace
@@ -620,9 +622,27 @@ def _build_union_grid(
     (0 for sentinel ids and the rows past Cmax; token rows at or beyond a
     doc's length are zero).
 
-    The grid is a fresh `torch.empty` per batch: the caching allocator hands
-    the same block back for the same shape, and batches on one stream run
-    in order, so in-flight batches share it safely."""
+    On a CUDA index of an nbits and d that csrc/union_grid.cu takes
+    (`union_grid.supported`), one launch of that kernel writes both; else
+    (the CPU, other widths) `_build_union_grid_eager` decompresses tile by
+    tile. The grid is a fresh `torch.empty` per batch: the caching
+    allocator hands the same block back for the same shape, and batches on
+    one stream run in order, so in-flight batches share it safely."""
+    td = shapes.doc_token_cap
+    if not union_grid_ops.supported(index.device, index.nbits, index.dim):
+        return _build_union_grid_eager(index, union_ids, shapes)
+    return union_grid_ops.union_grid(
+        union_ids, index.doclens, index.doc_offsets, index.codes, index.residuals,
+        index.centroids, index.bucket_weights, index.nbits, index.num_documents, td,
+        rows=max(_round_up(union_ids.shape[0], 64), 64), td_k=_round_up(td, 8),
+    )
+
+
+def _build_union_grid_eager(
+    index: DeviceIndex, union_ids: torch.Tensor, shapes: PipelineShapes
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_build_union_grid` in eager PyTorch: `decompress_docs` UNION_BUILD_TILE
+    docs a step, cast to bf16 into the grid (the kernel's plain version)."""
     cmax = union_ids.shape[0]
     td = shapes.doc_token_cap
     td_k = _round_up(td, 8)

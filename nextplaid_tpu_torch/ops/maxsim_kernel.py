@@ -45,8 +45,8 @@ launch raises. Each kernel's library is compiled with nvcc at first use into
 build/nextplaid_tpu_torch/ and loaded with ctypes; a library is rebuilt when
 its source, a header it includes or the flags change. Builds and loads are
 thread-safe: a server's first searches arrive on several executor threads at
-once, and one source is compiled once (`load_kernels` builds the two served
-kernels before a server takes requests).
+once, and one source is compiled once (`load_kernels` builds and loads the
+served kernels before a server takes requests).
 """
 
 from __future__ import annotations
@@ -71,6 +71,9 @@ SOURCE = CSRC / "maxsim_bf16.cu"
 SOURCE_INT8 = CSRC / "maxsim_int8.cu"
 SOURCE_VARIANTS = CSRC / "maxsim_variants.cu"  # wrapper: ops/maxsim_variants.py
 SOURCES = (SOURCE, SOURCE_INT8, SOURCE_VARIANTS)
+# What a server launches: both MaxSim kernels and the staged route's union
+# grid (wrapper: ops/union_grid.py).
+SERVED_SOURCES = (SOURCE, SOURCE_INT8, CSRC / "union_grid.cu")
 HEADER_WGMMA = CSRC / "maxsim_wgmma.cuh"
 # Headers each source includes: their bytes are part of its build hash.
 HEADERS = {src: (HEADER_WGMMA,) for src in SOURCES}
@@ -203,21 +206,24 @@ def _library_int8() -> ctypes.CDLL:
 
 
 def build_served() -> Dict[str, Path]:
-    """Compile the two served kernels, one nvcc each, started together,
-    without loading them (an image build runs this without a card).
-    Returns {source stem: library path}."""
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(build_library, (SOURCE, SOURCE_INT8)))
-    return {SOURCE.stem: libs[0], SOURCE_INT8.stem: libs[1]}
+    """Compile the served kernels (SERVED_SOURCES), one nvcc each, started
+    together, without loading them (an image build runs this without a
+    card). Returns {source stem: library path}."""
+    with ThreadPoolExecutor(len(SERVED_SOURCES)) as pool:
+        libs = list(pool.map(build_library, SERVED_SOURCES))
+    return {src.stem: lib for src, lib in zip(SERVED_SOURCES, libs)}
 
 
 def load_kernels() -> None:
-    """Build (`build_served`) and load the two served kernels. A server on a
-    card calls this before it takes requests, so that no request waits for
-    nvcc."""
+    """Build (`build_served`) and load the served kernels. A server on a
+    card calls this before it takes requests, so that no request, staged
+    ones included, waits for nvcc."""
+    from nextplaid_tpu_torch.ops import union_grid
+
     build_served()
     _library()
     _library_int8()
+    union_grid._library()
 
 
 @dataclass(frozen=True)

@@ -578,7 +578,7 @@ def test_auto_serve_mode_appends_in_place(server, monkeypatch):
 
 
 def test_kernels_load_before_requests_on_a_card(tmp_path, monkeypatch):
-    """On a card the app builds and loads both MaxSim kernels while it
+    """On a card the app builds and loads the served kernels while it
     starts, before it takes a request; on the CPU it builds nothing. (A
     "cuda" device object needs no card until something is allocated.)"""
     from aiohttp import web
