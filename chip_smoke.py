@@ -45,11 +45,18 @@ port's paths:
      metadata store and FTS kept in sync); and the stale-IVF reroute of a
      staged request, then `refresh_ivf` and staged recall.
   7. text to a searchable index, after the mutations and before the
-     megascale build: the ColBERT encoder at GTE-ModernColBERT-v1's widths
-     (22 layers, hidden 768, random weights from seed 0, bf16) held against
-     its f32 forward on the CPU, and its quantized forward against full
-     precision; 5,183 documents of 280 words, from a whitespace tokenizer
-     over a synthetic 50,368-word vocabulary, through `encode_documents`;
+     megascale build: first `ops.attention.varlen_attention`'s kernel
+     against its plain version on one packed forward at the rerank cell's
+     shapes (32 log-normal document lengths and one of 8,192, 12 x 64
+     heads, a global and a local layer with RoPE), at a bound that two
+     planted faults (a skipped key tile, a narrower band) must fail; then
+     the ColBERT encoder at GTE-ModernColBERT-v1's widths (22 layers,
+     hidden 768, random weights from seed 0, bf16), its packed forward held
+     against the f32 padded forward (the JAX chain) on the CPU, and its
+     quantized forward against full precision, each forward's attention
+     one launch of the kernel a layer; 5,183 documents of
+     280 words, from a whitespace tokenizer over a synthetic 50,368-word
+     vocabulary, through `encode_documents`;
      `create_index_streamed` (nbits 4) in chunks of 1,024 docs, interrupted
      at chunk 3 and resumed byte-equal to an uninterrupted build; load +
      bf16 pin; 320 encoded excerpt queries through `search_batch`, recall@10
@@ -175,6 +182,7 @@ import filecmp
 import gc
 import json
 import logging
+import math
 import os
 import re
 import shutil
@@ -1658,6 +1666,14 @@ ENC_TOPICS = 1024  # vocabulary topics a document draws most of its words from
 ENC_MIN_COS_BF16 = 0.999
 # Quantized against full-precision forward: tests/test_encoder.py:376's bound.
 ENC_MIN_COS_INT8 = 0.99
+# The attention kernel's check at the rerank cell's shapes
+# (benchmark/traffic/rerank32_long_w1.json): 32 documents of log-normal
+# lengths (median 1,024 tokens, sigma 1.0, clipped to 64-8,192) and one of
+# 8,192; 12 heads of 64, bf16; each layer kind with its half window and
+# RoPE theta. Held at ENC_MIN_COS_BF16.
+ATTN_DOCS = 32
+ATTN_HEADS, ATTN_HEAD_DIM = 12, 64
+ATTN_LAYERS = (("global", None, 160_000.0), ("local", 64, 10_000.0))
 
 
 class WhitespaceTokenizer:
@@ -1729,16 +1745,120 @@ def excerpt_queries(texts, n, n_words, seed=1):
     return out, sources
 
 
-def per_token_cos(a, b, valid):
-    """Least cosine between rows of [B, L, dim] a and b where `valid`."""
+def per_token_cos(a, b, valid=None):
+    """Least cosine between rows of [..., dim] a and b (where `valid`)."""
     a, b = a.double(), b.double()
     cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)).clamp_min(1e-12)
-    return float(cos[valid].min())
+    return float((cos if valid is None else cos[valid]).min())
 
 
-def forward_ms(model, ids, attn, reps=5):
+def packed_batch(ids, attn, device):
+    """A padded batch's live tokens (each row a prefix of ones, as
+    `Colbert._prepare` pads them) as `ColbertModel.forward_packed` takes
+    them: ids [N], positions [N] and cu_seqlens [B + 1] int32 on `device`."""
+    from nextplaid_tpu_torch.encoder.model import packed_positions
+
+    lens = attn.sum(1).astype(np.int64)
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return (torch.from_numpy(ids[attn.astype(bool)].astype(np.int64)).to(device),
+            torch.from_numpy(packed_positions(lens)).to(device), torch.from_numpy(cu).to(device))
+
+
+def forward_ms(model, packed, reps=5):
     with torch.inference_mode():
-        return time_ms(lambda: model(ids, attn), reps)
+        return time_ms(lambda: model.forward_packed(*packed), reps)
+
+
+def attention_lengths(seed=7):
+    """A rerank request's document lengths as the cell draws them, and one
+    of 8,192 tokens, ascending as the encoder packs them."""
+    rng = np.random.default_rng(seed)
+    lens = np.clip(np.round(1024 * np.exp(rng.standard_normal(ATTN_DOCS))), 64, 8192)
+    return np.sort(np.append(lens.astype(np.int64), 8192))
+
+
+def attention_check(device):
+    """ops/attention.py's kernel against its plain version
+    (`varlen_attention_reference`) on one packed forward at the rerank
+    cell's shapes (ATTN_*), a global layer and a local one, RoPE on, with
+    the tile table the encoder passes: least cosine per token and head at
+    ENC_MIN_COS_BF16, and max |difference|. The bound must catch two
+    planted faults: the longest document's last key tile skipped (the
+    kernel over that document less its last BLOCK_N tokens, compared on the
+    rows it computed) and a band one narrower (half window 63 against 64).
+    Both versions timed (CUDA events) beside the bound, max(operations at
+    989 TFLOP/s, q, k, v and output bytes at the HBM rate). Sets the launch
+    counter to 0 first; returns the kernel's numbers for the kernels line."""
+    from nextplaid_tpu_torch.encoder.model import _rope_tables, packed_positions
+    from nextplaid_tpu_torch.ops import attention as A
+
+    A.varlen_attention.launches = 0
+    lens = attention_lengths()
+    n, h, d = int(lens.sum()), ATTN_HEADS, ATTN_HEAD_DIM
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32, device=device)
+    pos = torch.from_numpy(packed_positions(lens)).to(device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    q, k, v = (torch.randn(n, h, d, device=device, generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    tiles = A.tile_table(cu, n)
+    scale = 1.0 / math.sqrt(d)
+    cu_cut = cu.clone()
+    cu_cut[-1] -= A.BLOCK_N
+    tiles_cut = A.tile_table(cu_cut, n)
+    cos = lambda a, b: per_token_cos(a.reshape(-1, d), b.reshape(-1, d))  # noqa: E731
+    out = {}
+    for kind, half_window, theta in ATTN_LAYERS:
+        rope = _rope_tables(pos, d, theta)
+        got = A.varlen_attention(q, k, v, cu, half_window, scale, rope=rope, tiles=tiles)
+        want = A.varlen_attention_reference(q, k, v, cu, half_window, scale, rope=rope)
+        least = cos(got, want)
+        max_err = float((got.float() - want.float()).abs().max())
+        if half_window is None:
+            fault = "the longest document's last key tile skipped"
+            bad = A.varlen_attention(q, k, v, cu_cut, None, scale, rope=rope, tiles=tiles_cut)
+            fault_cos = cos(bad[: n - A.BLOCK_N], want[: n - A.BLOCK_N])
+        else:
+            fault = f"a band of half window {half_window - 1}"
+            bad = A.varlen_attention(q, k, v, cu, half_window - 1, scale, rope=rope, tiles=tiles)
+            fault_cos = cos(bad, want)
+        del want, bad
+        if not least >= ENC_MIN_COS_BF16:
+            raise AssertionError(f"attention kernel [{kind}] against its plain version: least "
+                                 f"cosine {least} < {ENC_MIN_COS_BF16}")
+        if not fault_cos < ENC_MIN_COS_BF16:
+            raise AssertionError(f"attention check [{kind}]: {fault} reads least cosine "
+                                 f"{fault_cos}, within the bound {ENC_MIN_COS_BF16}")
+        kernel_ms = time_ms(lambda: A.varlen_attention(q, k, v, cu, half_window, scale,
+                                                       rope=rope, tiles=tiles), 20)
+        plain_ms = time_ms(lambda: A.varlen_attention_reference(q, k, v, cu, half_window, scale,
+                                                                rope=rope), 2)
+        w = half_window
+        pairs = int((lens * lens if w is None else
+                     np.where(lens <= w + 1, lens * lens, lens * (2 * w + 1) - w * (w + 1))).sum())
+        ops_ms = 1e3 * 4 * h * d * pairs / PEAK_BF16_FLOPS
+        bytes_ms = 1e3 * 4 * 2 * n * h * d / PEAK_HBM_BYTES
+        bound_ms = max(ops_ms, bytes_ms)
+        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        print(f"attention kernel [{kind}, rerank shapes: {len(lens)} documents, {n} tokens, "
+              f"{h} x {d} heads, RoPE theta {theta:g}]: least cosine {least:.6f} (bound "
+              f"{ENC_MIN_COS_BF16}), max abs {max_err:.3g}; planted fault ({fault}) least cosine "
+              f"{fault_cos:.6f}; kernel {kernel_ms:.3f} ms, plain version {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.3f} ms ({bound_by}; {100 * bound_ms / kernel_ms:.1f}% of it)",
+              flush=True)
+        out[kind] = {"least_cos": least, "max_abs_err": max_err, "fault_cos": fault_cos,
+                     "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+    del q, k, v
+    torch.cuda.empty_cache()
+    g, loc = out["global"], out["local"]
+    return {"max_abs_err": max(g["max_abs_err"], loc["max_abs_err"]), "ms": g["ms"],
+            "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+            "least_cos": g["least_cos"], "fault_skipped_tile_cos": g["fault_cos"],
+            "local_least_cos": loc["least_cos"], "local_max_abs_err": loc["max_abs_err"],
+            "fault_narrow_band_cos": loc["fault_cos"], "local_ms": loc["ms"],
+            "local_plain_ms": loc["plain_ms"], "local_bound_ms": loc["bound_ms"],
+            "local_bound_by": loc["bound_by"], "tokens": n, "documents": len(lens),
+            "check_launches": A.varlen_attention.launches}
 
 
 def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BERT_WIDTHS,
@@ -1752,7 +1872,9 @@ def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BE
     load + bf16 pin, encoded queries searched through the bf16 kernel with
     recall@10 against the f32 oracle; then the BERT family's throughput.
     Returns the bf16 kernel's launches in the phase and its largest
-    difference from the plain version on the encoded grid."""
+    difference from the plain version on the encoded grid, and the
+    attention kernel's numbers (`attention_check`'s, with the phase's
+    launches)."""
     from nextplaid_tpu_torch.encoder import BackboneConfig, Colbert, ColbertModel, init_random_params
     from nextplaid_tpu_torch.encoder.model import quantize_dense_params
     from nextplaid_tpu_torch.index import (
@@ -1760,11 +1882,13 @@ def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BE
     )
     from nextplaid_tpu_torch.index.build import DeviceChunk
     from nextplaid_tpu_torch.index.search import _pad_queries
+    from nextplaid_tpu_torch.ops.attention import varlen_attention
     from nextplaid_tpu_torch.utils.errors import StorageError
 
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     t_phase = time.perf_counter()
     try:
+        attention = attention_check(device)
         bcfg = BackboneConfig(**widths)
         tok = WhitespaceTokenizer(bcfg.vocab_size)
         t0 = time.perf_counter()
@@ -1774,17 +1898,24 @@ def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BE
                       tokenizer=tok, params=params, batch_size=ENC_BATCH, device=device)
         texts = make_texts(n_docs, ENC_WORDS, tok.n_words)
 
-        # The card's bf16 forward against the CPU's f32 one, same weights.
+        # The card's packed bf16 forward against the CPU's padded f32 one
+        # (the JAX chain), same weights, on the live tokens.
         ids_np, attn_np, _, _ = enc._prepare(texts[:ENC_CHECK_DOCS], is_query=False)
         ids, attn = torch.from_numpy(ids_np), torch.from_numpy(attn_np)
+        packed = packed_batch(ids_np, attn_np, device)
         cpu = ColbertModel(bcfg, compute_dtype=torch.float32, device="cpu")
         cpu.load_state_dict(params)
         with torch.inference_mode():
-            want = cpu(ids, attn)
-            got = enc.model(ids.to(device), attn.to(device)).cpu()
+            want = cpu(ids, attn)[attn.bool()]
+            attn_before = varlen_attention.launches
+            got = enc.model.forward_packed(*packed).cpu()
+            attn_launches = varlen_attention.launches - attn_before
         del cpu
-        valid = attn.bool()
-        cos_bf16 = per_token_cos(got, want, valid)
+        if attn_launches != bcfg.num_hidden_layers:
+            raise AssertionError(f"the card's forward launched the attention kernel "
+                                 f"{attn_launches} times, not once a layer "
+                                 f"({bcfg.num_hidden_layers})")
+        cos_bf16 = per_token_cos(got, want)
         # The quantized forward against the full-precision one, both f32 on
         # the card (tests/test_encoder.py:376's comparison).
         full = ColbertModel(bcfg, compute_dtype=torch.float32, device=device)
@@ -1792,8 +1923,8 @@ def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BE
         quant = ColbertModel(bcfg, compute_dtype=torch.float32, quantized=True, device=device)
         quant.load_state_dict(quantize_dense_params(params))
         with torch.inference_mode():
-            cos_int8 = per_token_cos(quant(ids.to(device), attn.to(device)).cpu(),
-                                     full(ids.to(device), attn.to(device)).cpu(), valid)
+            cos_int8 = per_token_cos(quant.forward_packed(*packed).cpu(),
+                                     full.forward_packed(*packed).cpu())
         del full, quant
         # The quantized model that is timed and shipped (bf16 compute, int8
         # dense products) against the CPU's f32 full-precision forward.
@@ -1801,11 +1932,11 @@ def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BE
                        tokenizer=tok, params=params, batch_size=ENC_BATCH, quantized=True,
                        device=device)
         with torch.inference_mode():
-            cos_shipped = per_token_cos(qenc.model(ids.to(device), attn.to(device)).cpu(),
-                                        want, valid)
+            cos_shipped = per_token_cos(qenc.model.forward_packed(*packed).cpu(), want)
         print(f"encoder [GTE-ModernColBERT-v1 widths, {bcfg.num_hidden_layers} layers, hidden "
               f"{bcfg.hidden_size}, random weights]: init {init_s:.2f} s; {ENC_CHECK_DOCS} docs x "
-              f"{ids.shape[1]} tokens, least per-token cosine card bf16 vs CPU f32 "
+              f"{ids.shape[1]} tokens, attention kernel launches {attn_launches} a forward, "
+              f"least per-token cosine card bf16 vs CPU f32 "
               f"{cos_bf16:.6f} (bound {ENC_MIN_COS_BF16}), int8 vs f32 on the card "
               f"{cos_int8:.6f}, card bf16 + int8 vs CPU f32 {cos_shipped:.6f} (bound "
               f"{ENC_MIN_COS_INT8} each)", flush=True)
@@ -1816,16 +1947,21 @@ def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BE
 
         # The forward alone at a full batch, by CUDA events; then the corpus.
         ids_np, attn_np, _, _ = enc._prepare(texts[:ENC_BATCH], is_query=False)
-        ids_b, attn_b = torch.from_numpy(ids_np).to(device), torch.from_numpy(attn_np).to(device)
-        fwd_ms = forward_ms(enc.model, ids_b, attn_b)
-        fwd_q_ms = forward_ms(qenc.model, ids_b, attn_b)
+        packed_b = packed_batch(ids_np, attn_np, device)
+        fwd_ms = forward_ms(enc.model, packed_b)
+        fwd_q_ms = forward_ms(qenc.model, packed_b)
         del params
         enc.encode_documents(texts[: 2 * ENC_BATCH])  # warm-up
         torch.cuda.synchronize()
+        attn_before = varlen_attention.launches
         t0 = time.perf_counter()
         embs = enc.encode_documents(texts)
         encode_s = time.perf_counter() - t0
-        n_batches = -(-n_docs // ENC_BATCH)
+        corpus_launches = varlen_attention.launches - attn_before
+        if corpus_launches == 0 or corpus_launches % bcfg.num_hidden_layers:
+            raise AssertionError(f"encoding the corpus launched the attention kernel "
+                                 f"{corpus_launches} times, not once a layer of each forward")
+        n_batches = corpus_launches // bcfg.num_hidden_layers  # packed forwards
         host_share = max(0.0, 1.0 - n_batches * fwd_ms / (1e3 * encode_s))
         n_sub = min(n_docs, 16 * ENC_BATCH)
         qenc.encode_documents(texts[: 2 * ENC_BATCH])
@@ -1841,11 +1977,13 @@ def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BE
             raise AssertionError("encoded documents are not finite [tokens, dim] arrays")
         print(f"encode: {n_docs} docs of {ENC_WORDS} words, {total} tokens at batch {ENC_BATCH}: "
               f"{encode_s:.2f} s, {n_docs / encode_s:.1f} docs/s, {total / encode_s:.0f} tokens/s; "
-              f"forward {fwd_ms:.3f} ms a batch of {ENC_BATCH} x {ids_b.shape[1]} (CUDA events), "
+              f"packed forward {fwd_ms:.3f} ms a batch of {ENC_BATCH} documents, "
+              f"{packed_b[0].numel()} tokens (CUDA events), "
               f"host share of the wall {100 * host_share:.1f}%; quantized forward {fwd_q_ms:.3f} ms "
               f"a batch, {q_rate:.1f} docs/s over {n_sub} docs (bf16 "
-              f"{n_docs / encode_s:.1f})", flush=True)
-        del ids_b, attn_b
+              f"{n_docs / encode_s:.1f}); attention kernel launches {corpus_launches} "
+              f"({corpus_launches // bcfg.num_hidden_layers} packed forwards)", flush=True)
+        del packed_b
 
         # The streamed build, uninterrupted; then interrupted and resumed.
         bounds = np.concatenate([[0], np.cumsum(doclens)])
@@ -1979,7 +2117,9 @@ def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BE
         del benc
         gc.collect()
         torch.cuda.empty_cache()
-        return {"encoder_launches": launches, "encoder_max_abs_err": max_err}
+        attention.update(launches=varlen_attention.launches, forward_launches=attn_launches,
+                         corpus_launches=corpus_launches)
+        return {"encoder_launches": launches, "encoder_max_abs_err": max_err}, attention
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
@@ -4504,7 +4644,7 @@ def main() -> int:
     # Phase 7: the seventh slice's path, text to a searchable index: the
     # encoder, a resumed streamed build, load, and search through the bf16
     # kernel.
-    encoder = encoder_phase(device, mk)
+    encoder, attention = encoder_phase(device, mk)
     # Phase 8: the tenth slice's path, doc-range sharding at SciFact scale on
     # an in-process mesh of four shards on the card (and in three processes).
     sharded = sharded_phase(device, mk, SERVICE_SRC, topics, queries)
@@ -4546,7 +4686,10 @@ def main() -> int:
     # included, the harness phase's, the deploy phase's and the bench
     # phase's. The union grid kernel's are the staged path's and the RQ
     # phase's (RQ and flat control); its check and times are the staged
-    # stage-4 shape's, the rq_* keys the RQ one's.
+    # stage-4 shape's, the rq_* keys the RQ one's. The attention kernel's
+    # are the encoder phase's, its check at the rerank cell's shapes
+    # included; its check and times are that check's global layer's, the
+    # local_* keys the local layer's.
     bf16_entry = kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:])
     bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged, **mutation["bf16"],
@@ -4575,7 +4718,14 @@ def main() -> int:
                                staged_union["plain_ms"], staged_union["bound_ms"], "bytes")
     union_entry.update({k: v for k, v in staged_union.items()
                         if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms")}, **rq_union)
-    print(json.dumps({"kernels": [bf16_entry, int8_entry, variants, union_entry]}), flush=True)
+    attention_entry = kernel_entry("varlen_attention", "nextplaid_tpu_torch/ops/attention.py",
+                                   "none: nextplaid_tpu/encoder/model.py's dense XLA attention",
+                                   *(attention[k] for k in ("launches", "max_abs_err", "ms",
+                                                            "plain_ms", "bound_ms", "bound_by")))
+    attention_entry.update({k: v for k, v in attention.items() if k not in attention_entry},
+                           route="triton")
+    print(json.dumps({"kernels": [bf16_entry, int8_entry, variants, union_entry,
+                                  attention_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -62,7 +62,7 @@ from nextplaid_tpu_torch.api.state import AppState, search_fn_for
 from nextplaid_tpu_torch.filtering import text_search
 from nextplaid_tpu_torch.index import SearchParameters
 from nextplaid_tpu_torch.index.config import Metadata
-from nextplaid_tpu_torch.ops.maxsim import maxsim_score
+from nextplaid_tpu_torch.ops.maxsim import rerank_scores
 from nextplaid_tpu_torch.storage.npy import IndexLayout, load_json
 from nextplaid_tpu_torch.utils.errors import FilteringError, NextPlaidError
 
@@ -914,12 +914,9 @@ async def encode(request: web.Request) -> web.Response:
 def _rerank_arrays(
     query: np.ndarray, docs: List[np.ndarray], device: torch.device
 ) -> List[dict]:
-    """Exact f32 MaxSim of each doc against the query, on `device`."""
-    q = torch.tensor(query, dtype=torch.float32, device=device)
-    scores = [
-        float(maxsim_score(q, torch.tensor(d, dtype=torch.float32, device=device)))
-        for d in docs
-    ]
+    """Exact f32 MaxSim of each doc against the query on `device`, best
+    first (`ops.maxsim.rerank_scores`: one batch, one readback)."""
+    scores = rerank_scores(query, docs, device).tolist()
     order = sorted(range(len(docs)), key=lambda i: -scores[i])
     return [{"index": i, "score": scores[i]} for i in order]
 

@@ -12,9 +12,22 @@ PyTorch counterpart of `nextplaid_tpu.encoder.colbert` (next-plaid-onnx's
     embeddings are dropped from the output (lib.rs:2214-2240);
   - optional hierarchical token pooling (pooling.py).
 
-Shapes are the JAX package's: lengths round up to a multiple of 32 and
-batches to a power of two (rows repeated), so both packages run the same
-[batch, length] forwards on the same texts.
+BERT's shapes are the JAX package's: lengths round up to a multiple of 32
+and batches to a power of two (rows repeated), so both packages run the
+same [batch, length] forwards on the same texts. ModernBERT runs packed,
+as HF ModernBERT's unpadded path does: a forward's live tokens laid end to
+end with their documents' bounds (`ColbertModel.forward_packed`), and
+forwards formed by tokens: consecutive texts of the length sort while they
+hold at most batch_size x document_length (queries: x query_length) live
+tokens, the size of a padded forward at the config's full length.
+
+With tracing on (`utils.trace`), each call records host spans
+`encode.prepare` (tokenization and packing), the device span
+`encode.forward` of each forward, and its counters `encode.live_tokens`,
+`encode.token_slots`, `encode.attn_pairs_global` and
+`encode.attn_pairs_local` (query-key pairs within one document, summed
+over the forward's global or local layers, per head), keyed to the
+caller's `trace.batch_scope` or a fresh batch id a call.
 
 Forwards are queued on the card's current stream without waiting:
 `pipeline_depth` of them are in flight at once, each read back by a
@@ -24,6 +37,8 @@ tokenizes the next batch and filters an earlier one while the card runs.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import os
 from collections import deque
 from pathlib import Path
@@ -38,9 +53,11 @@ from nextplaid_tpu_torch.encoder.model import (
     ColbertModel,
     init_random_params,
     load_params,
+    packed_positions,
     quantize_dense_params,
 )
 from nextplaid_tpu_torch.encoder.pooling import pool_document_embeddings
+from nextplaid_tpu_torch.utils import trace
 from nextplaid_tpu_torch.utils.device import DeviceLike, resolve_device
 from nextplaid_tpu_torch.utils.errors import EncodingError
 
@@ -49,6 +66,22 @@ _LENGTH_BUCKET = 32
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _token_packs(lengths: Iterable[int], budget: int) -> Iterator[tuple]:
+    """(start, end) of consecutive runs of `lengths` that each sum to at
+    most `budget` (a longer single length runs alone), greedily. A run is
+    yielded as soon as the length after it is drawn, so `lengths` may be
+    produced lazily."""
+    start = end = held = 0
+    for n in lengths:
+        if end > start and held + n > budget:
+            yield start, end
+            start, held = end, 0
+        held += n
+        end += 1
+    if start < end:
+        yield start, end
 
 
 def _batch_bucket(n: int, cap: int) -> int:
@@ -60,17 +93,46 @@ def _batch_bucket(n: int, cap: int) -> int:
 
 class _Pending:
     """One forward in flight: its output on the host once `event` (None on
-    the CPU) has completed, and how many of its rows are real."""
+    the CPU) has completed, and how many of its rows are real; `timing`,
+    the forward's CUDA events when traced."""
 
-    __slots__ = ("host", "event", "n")
+    __slots__ = ("host", "event", "n", "timing", "batch")
 
-    def __init__(self, host, event, n):
+    def __init__(self, host, event, n, timing=None, batch=None):
         self.host, self.event, self.n = host, event, n
+        self.timing, self.batch = timing, batch
 
     def result(self) -> np.ndarray:
         if self.event is not None:
             self.event.synchronize()
+        if self.timing is not None:
+            trace.device_span("encode.forward", *self.timing, batch=self.batch)
         return self.host[: self.n].numpy()
+
+
+class _Trace:
+    """A call's tracing: off, or on and keyed to one batch id."""
+
+    __slots__ = ("on", "batch")
+
+    def __init__(self):
+        self.on = trace.active()
+        self.batch = None
+        if self.on:
+            self.batch = trace.current_batch()
+            if self.batch is None:
+                self.batch = trace.next_batch()
+
+    def prepare(self):
+        return trace.span("encode.prepare", self.batch) if self.on else contextlib.nullcontext()
+
+    def events(self, device):
+        """A started pair of timing events on the card, else None."""
+        if not self.on or device.type != "cuda":
+            return None
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        return start, end
 
 
 class Colbert:
@@ -219,9 +281,9 @@ class Colbert:
 
     # -- tokenization (lib.rs:1841-2100 semantics) ---------------------------
 
-    def _prepare(self, texts: Sequence[str], is_query: bool) -> tuple:
-        """Returns (input_ids [B,L], attention [B,L], token_ids per row,
-        original_lengths). L is the bucketed batch max length."""
+    def _rows(self, texts: Sequence[str], is_query: bool) -> List[List[int]]:
+        """Each text's token ids: [CLS], the prefix, the content and [SEP],
+        truncated to the query or document length."""
         cfg = self.config
         max_length = cfg.query_length if is_query else cfg.document_length
         prefix_id = self._query_prefix_id if is_query else self._document_prefix_id
@@ -243,7 +305,14 @@ class Colbert:
             else:
                 row = [ids[0], prefix_id, *ids[1:real_len]]
             rows.append(row)
+        return rows
 
+    def _prepare(self, texts: Sequence[str], is_query: bool) -> tuple:
+        """Returns (input_ids [B,L], attention [B,L], token_ids per row,
+        original_lengths). L is the bucketed batch max length."""
+        cfg = self.config
+        max_length = cfg.query_length if is_query else cfg.document_length
+        rows = self._rows(texts, is_query)
         original_lengths = [len(r) for r in rows]
         if is_query and cfg.do_query_expansion:
             batch_len = max_length
@@ -271,34 +340,80 @@ class Colbert:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def _dispatch_batch(self, input_ids: np.ndarray, attention: np.ndarray) -> _Pending:
-        """Queue one forward (batch dim bucket-padded by repeating the last
-        row) and its readback, without waiting for either."""
+    @property
+    def _packed(self) -> bool:
+        """ModernBERT runs packed forwards; BERT runs padded ones."""
+        return self.backbone_config.model_type == "modernbert"
+
+    def _readback(self, emb: torch.Tensor, n: int, timing, tr: _Trace) -> _Pending:
+        """Queue the copy of a forward's first `n` rows to the host."""
+        if emb.is_cuda:
+            if timing is not None:
+                timing[1].record()
+            host = torch.empty(emb.shape, dtype=emb.dtype, pin_memory=True)
+            host.copy_(emb, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            return _Pending(host, event, n, timing, tr.batch)
+        return _Pending(emb, None, n)
+
+    def _dispatch_batch(self, input_ids: np.ndarray, attention: np.ndarray,
+                        tr: _Trace) -> _Pending:
+        """Queue one padded forward (batch dim bucket-padded by repeating
+        the last row) and its readback, without waiting for either."""
         n = len(input_ids)
         b = _batch_bucket(n, self.batch_size)
         if b != n:
             input_ids = np.concatenate([input_ids, np.repeat(input_ids[-1:], b - n, 0)])
             attention = np.concatenate([attention, np.repeat(attention[-1:], b - n, 0)])
+        if tr.on:
+            trace.count("encode.live_tokens", int(attention[:n].sum()), tr.batch)
+            trace.count("encode.token_slots", input_ids.size, tr.batch)
         ids, attn = self._to_device(input_ids), self._to_device(attention)
-        token_type = (
-            torch.zeros_like(ids) if self.backbone_config.model_type != "modernbert" else None
-        )
+        token_type = torch.zeros_like(ids) if not self._packed else None
+        timing = tr.events(self.device)
         with torch.inference_mode():
             emb = self.model(ids, attn, token_type)[:n]
-        if emb.is_cuda:
-            host = torch.empty(emb.shape, dtype=emb.dtype, pin_memory=True)
-            host.copy_(emb, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            return _Pending(host, event, n)
-        return _Pending(emb, None, n)
+        return self._readback(emb, n, timing, tr)
 
-    def _run_batches(self, input_ids: np.ndarray, attention: np.ndarray) -> np.ndarray:
-        """Run every sub-batch (all queued before any is read back); returns
-        [N, L, dim] float32."""
+    def _count_packed(self, lens: np.ndarray, batch) -> None:
+        cfg = self.backbone_config
+        n_global = len(range(0, cfg.num_hidden_layers, cfg.global_attn_every_n_layers))
+        w = cfg.local_attention // 2
+        band = np.where(lens <= w + 1, lens * lens, lens * (2 * w + 1) - w * (w + 1))
+        n = int(lens.sum())
+        trace.count("encode.live_tokens", n, batch)
+        trace.count("encode.token_slots", n, batch)
+        trace.count("encode.attn_pairs_global", n_global * int((lens * lens).sum()), batch)
+        trace.count("encode.attn_pairs_local",
+                    (cfg.num_hidden_layers - n_global) * int(band.sum()), batch)
+
+    def _dispatch_packed(self, rows: List[List[int]], tr: _Trace) -> _Pending:
+        """Queue one packed forward of `rows` and its readback, without
+        waiting for either."""
+        with tr.prepare():
+            lens = np.fromiter(map(len, rows), np.int64, len(rows))
+            n = int(lens.sum())
+            flat = np.empty((2, n), np.int64)  # ids, positions: one copy
+            flat[0] = np.fromiter(itertools.chain.from_iterable(rows), np.int64, n)
+            flat[1] = packed_positions(lens)
+            cu = np.zeros(len(rows) + 1, np.int32)
+            np.cumsum(lens, out=cu[1:])
+            if tr.on:
+                self._count_packed(lens, tr.batch)
+            ids, cu_t = self._to_device(flat), self._to_device(cu)
+        timing = tr.events(self.device)
+        with torch.inference_mode():
+            emb = self.model.forward_packed(ids[0], ids[1], cu_t)
+        return self._readback(emb, n, timing, tr)
+
+    def _run_batches(self, input_ids: np.ndarray, attention: np.ndarray,
+                     tr: _Trace) -> np.ndarray:
+        """Run every padded sub-batch (all queued before any is read back);
+        returns [N, L, dim] float32."""
         pending = [
             self._dispatch_batch(
-                input_ids[s : s + self.batch_size], attention[s : s + self.batch_size]
+                input_ids[s : s + self.batch_size], attention[s : s + self.batch_size], tr
             )
             for s in range(0, len(input_ids), self.batch_size)
         ]
@@ -312,11 +427,23 @@ class Colbert:
         [query_length, dim] including attended [MASK] rows (lib.rs:1501)."""
         if not queries:
             return []
-        input_ids, attention, _, lengths = self._prepare(queries, is_query=True)
-        emb = self._run_batches(input_ids, attention)
-        if self.config.do_query_expansion:
-            return [emb[i] for i in range(len(queries))]
-        return [emb[i, : lengths[i]] for i in range(len(queries))]
+        cfg, tr = self.config, _Trace()
+        if not self._packed:
+            with tr.prepare():
+                input_ids, attention, _, lengths = self._prepare(queries, is_query=True)
+            emb = self._run_batches(input_ids, attention, tr)
+            if cfg.do_query_expansion:
+                return [emb[i] for i in range(len(queries))]
+            return [emb[i, : lengths[i]] for i in range(len(queries))]
+        with tr.prepare():
+            rows = self._rows(queries, is_query=True)
+            if cfg.do_query_expansion:
+                rows = [r + [cfg.mask_token_id] * (cfg.query_length - len(r)) for r in rows]
+        lens = [len(r) for r in rows]
+        pending = [self._dispatch_packed(rows[a:b], tr)
+                   for a, b in _token_packs(lens, self.batch_size * cfg.query_length)]
+        emb = np.concatenate([p.result() for p in pending])
+        return np.split(emb, np.cumsum(lens[:-1]))
 
     def encode_documents(
         self,
@@ -327,36 +454,59 @@ class Colbert:
         """Encode documents; padding rows are dropped, skiplist token rows
         filtered (lib.rs:1118), optional hierarchical pooling applied.
 
-        Documents are length-sorted before batching (lib.rs:752-758): each
-        forward pads only to its batch's longest member; the original order
-        is restored on output. While the card runs the forwards in flight,
-        the host tokenizes the next batch and filters the oldest.
+        Documents are length-sorted before batching (lib.rs:752-758): a
+        padded forward pads only to its batch's longest member, a packed
+        one takes consecutive documents up to its token budget; the
+        original order is restored on output. While the card runs the
+        forwards in flight, the host tokenizes the next batch and filters
+        the oldest.
         """
         if not documents:
             return []
         order = sorted(range(len(documents)), key=lambda i: len(documents[i]))
         out: List[Optional[np.ndarray]] = [None] * len(documents)
         skip = filter_skiplist and self._skiplist_arr.size > 0
+        packed, tr = self._packed, _Trace()
+        budget = self.batch_size * self.config.document_length
 
-        def postprocess(pending, idxs, rows, lengths):
+        def postprocess(pending, idxs, rows):
             emb = pending.result()
-            for bi, orig in enumerate(idxs):
-                L = min(lengths[bi], emb.shape[1])
+            if packed:
+                embs = np.split(emb, np.cumsum([len(r) for r in rows[:-1]]))
+            else:
+                embs = [emb[bi, : min(len(r), emb.shape[1])] for bi, r in enumerate(rows)]
+            for orig, row, e in zip(idxs, rows, embs):
                 if skip:
-                    keep = ~np.isin(np.asarray(rows[bi][:L]), self._skiplist_arr)
-                    out[orig] = emb[bi, :L][keep]
+                    out[orig] = e[~np.isin(np.asarray(row[: len(e)]), self._skiplist_arr)]
                 else:
-                    out[orig] = emb[bi, :L].copy()
+                    out[orig] = e.copy()
 
         pending = deque()
-        for start in range(0, len(order), self.batch_size):
-            idxs = order[start : start + self.batch_size]
-            input_ids, attention, rows, lengths = self._prepare(
-                [documents[i] for i in idxs], is_query=False
-            )
-            pending.append((self._dispatch_batch(input_ids, attention), idxs, rows, lengths))
+
+        def dispatch(p, idxs, rows):
+            pending.append((p, idxs, rows))
             if len(pending) > self.pipeline_depth:
                 postprocess(*pending.popleft())
+
+        if not packed:
+            for start in range(0, len(order), self.batch_size):
+                idxs = order[start : start + self.batch_size]
+                with tr.prepare():
+                    input_ids, attention, rows, _ = self._prepare(
+                        [documents[i] for i in idxs], is_query=False)
+                dispatch(self._dispatch_batch(input_ids, attention, tr), idxs, rows)
+        else:
+            texts_rows: List[List[int]] = []  # in `order`, as far as tokenized
+
+            def lengths():  # a batch_size chunk tokenized at a time, as packs are drawn
+                for start in range(0, len(order), self.batch_size):
+                    chunk = [documents[i] for i in order[start : start + self.batch_size]]
+                    with tr.prepare():
+                        texts_rows.extend(self._rows(chunk, is_query=False))
+                    yield from map(len, texts_rows[start:])
+
+            for a, b in _token_packs(lengths(), budget):
+                dispatch(self._dispatch_packed(texts_rows[a:b], tr), order[a:b], texts_rows[a:b])
         while pending:
             postprocess(*pending.popleft())
         if pool_factor > 1:

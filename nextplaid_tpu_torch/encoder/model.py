@@ -9,8 +9,18 @@ exported graph: backbone -> Dense(dim, no bias) -> normalize). Two backbones:
 
 The JAX package computes all of it in plain XLA, so here it is plain PyTorch
 ops: `torch.matmul` for the dense layers and attention, `torch._int_mm` for
-the int8 products of the quantized mode. The dtype chain is the JAX
-package's, step by step:
+the int8 products of the quantized mode; but for ModernBERT's attention on
+the card, which is one kernel a layer (`ops.attention.varlen_attention`)
+over a packed forward. Two layouts of one ModernBERT layer stack:
+  - padded [B, L] (`forward`; `_Padded`): the JAX chain below, dense
+    [B, H, L, L] scores with a mask bias, on any device; what the parity
+    tests against the JAX package hold;
+  - packed [N] live tokens with the documents' bounds (`forward_packed`;
+    `_Packed`), as HF ModernBERT's unpadded path: RoPE positions restart
+    at 0 in each document, attention never crosses one, the window is a
+    band, and nothing of [L, L] is built. The encoder runs ModernBERT
+    packed everywhere.
+The dtype chain is the JAX package's, step by step:
   - a backbone dense layer casts its input and weights to the compute dtype
     and returns that dtype (`nn.Dense(dtype=...)`); weights are held in the
     compute dtype, which rounds them as that cast does;
@@ -19,7 +29,8 @@ package's, step by step:
   - attention scores are the compute-dtype product divided by sqrt(head
     dim) in float32 (the JAX package divides by a numpy float64, which
     promotes), the -1e9 mask bias and the softmax are float32, and the
-    probabilities times the values are a float32 product;
+    probabilities times the values are a float32 product (the kernel's
+    departure: it rounds the probabilities to the compute dtype first);
   - the projection runs in float32, then L2 normalize with a 1e-12 clamp.
 
 Parameter names are the JAX package's Flax tree flattened with dots
@@ -42,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nextplaid_tpu_torch.ops.attention import rotate_half, tile_table, varlen_attention
 from nextplaid_tpu_torch.utils.device import DeviceLike, resolve_device
 from nextplaid_tpu_torch.utils.errors import EncodingError
 
@@ -296,23 +308,75 @@ class BertBackbone(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _rope_tables(positions: torch.Tensor, d: int, theta: float):
+    """cos and sin [*positions.shape, d / 2] float32 of the rotary angles
+    position * theta^(-2i / d)."""
+    inv_freq = torch.from_numpy(
+        (1.0 / (theta ** (np.arange(0, d, 2) / d))).astype(np.float32)
+    )
+    if positions.is_cuda:  # from pinned memory the copy waits for nothing queued
+        inv_freq = inv_freq.pin_memory()
+    angles = positions.to(torch.float32)[..., None] * inv_freq.to(positions.device, non_blocking=True)
+    return torch.cos(angles), torch.sin(angles)
+
+
 def _rope(q, k, theta: float):
     """Rotary position embedding over the last dim of [B, L, H, D] q/k,
     rotate-half convention, computed in float32 and returned in q's dtype."""
-    d = q.shape[-1]
-    L = q.shape[1]
-    inv_freq = torch.from_numpy(
-        (1.0 / (theta ** (np.arange(0, d, 2) / d))).astype(np.float32)
-    ).to(q.device)
-    pos = torch.arange(L, dtype=torch.float32, device=q.device)[:, None] * inv_freq[None, :]
-    cos = torch.cos(pos)[None, :, None, :]
-    sin = torch.sin(pos)[None, :, None, :]
+    pos = torch.arange(q.shape[1], device=q.device)
+    cos, sin = (t[None, :, None, :] for t in _rope_tables(pos, q.shape[-1], theta))
+    return rotate_half(q, cos, sin), rotate_half(k, cos, sin)
 
-    def rot(x):
-        x1, x2 = x[..., : d // 2], x[..., d // 2 :]
-        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
-    return rot(q), rot(k)
+def packed_positions(lengths) -> np.ndarray:
+    """Each packed token's position in its own document: 0 .. L - 1 for
+    every document of `lengths`, laid end to end (int64)."""
+    lengths = np.asarray(lengths, np.int64)
+    starts = np.cumsum(lengths) - lengths
+    return np.arange(int(lengths.sum()), dtype=np.int64) - np.repeat(starts, lengths)
+
+
+class _Padded:
+    """ModernBERT's attention over a padded [B, L] batch, the JAX chain:
+    positions 0 .. L - 1 on every row, dense scores with a float32 mask
+    bias that drops padded keys, and on local layers the keys outside the
+    window too."""
+
+    def __init__(self, attention_mask: torch.Tensor, half_window: int):
+        allow = attention_mask.bool()[:, None, None, :]
+        idx = torch.arange(attention_mask.shape[1], device=attention_mask.device)
+        window = (idx[:, None] - idx[None, :]).abs() <= half_window
+        self.global_bias = _mask_bias(allow)
+        self.local_bias = _mask_bias(allow & window[None, None, :, :])
+        self.half_window = half_window
+
+    def attend(self, q, k, v, half_window, theta):
+        if half_window not in (None, self.half_window):
+            raise ValueError(f"the padded path's window is {self.half_window}, not {half_window}")
+        q, k = _rope(q, k, theta)
+        return _attend(q, k, v, self.global_bias if half_window is None else self.local_bias)
+
+
+class _Packed:
+    """ModernBERT's attention over packed live tokens [N]: RoPE at each
+    token's position in its own document and attention within each
+    document of `cu_seqlens`, both in `ops.attention.varlen_attention` (the
+    kernel on the card). Builds nothing of [L, L]."""
+
+    def __init__(self, positions: torch.Tensor, cu_seqlens: torch.Tensor):
+        self.positions, self.cu_seqlens = positions, cu_seqlens
+        self._tables: Dict[float, tuple] = {}
+        self._tiles = None
+
+    def attend(self, q, k, v, half_window, theta):
+        n, h, d = q.shape
+        if theta not in self._tables:
+            self._tables[theta] = _rope_tables(self.positions, d, theta)
+        if self._tiles is None and q.is_cuda:
+            self._tiles = tile_table(self.cu_seqlens, n)
+        ctx = varlen_attention(q, k, v, self.cu_seqlens, half_window, 1.0 / math.sqrt(d),
+                               rope=self._tables[theta], tiles=self._tiles)
+        return ctx.reshape(n, h * d)
 
 
 class ModernBertAttention(nn.Module):
@@ -322,17 +386,19 @@ class ModernBertAttention(nn.Module):
         h = cfg.hidden_size
         self.is_global = layer_idx % cfg.global_attn_every_n_layers == 0
         self.theta = cfg.global_rope_theta if self.is_global else cfg.local_rope_theta
+        # Local layers: |i - j| <= window / 2; global layers: None.
+        self.half_window = None if self.is_global else cfg.local_attention // 2
         self.Wqkv = _dense(quantized, h, 3 * h, dtype, use_bias=False, device=device)
         self.Wo = _dense(quantized, h, h, dtype, use_bias=False, device=device)
 
-    def forward(self, hidden, bias):
+    def forward(self, hidden, layout):
+        """hidden [B, L, h] with a `_Padded` layout or [N, h] with a
+        `_Packed` one."""
         cfg = self.cfg
         H = cfg.num_attention_heads
-        B, L, _ = hidden.shape
-        qkv = self.Wqkv(hidden).reshape(B, L, 3 * H, cfg.hidden_size // H)
-        q, k, v = qkv.split(H, dim=2)
-        q, k = _rope(q, k, self.theta)
-        return self.Wo(_attend(q, k, v, bias))
+        qkv = self.Wqkv(hidden).reshape(*hidden.shape[:-1], 3 * H, cfg.hidden_size // H)
+        q, k, v = qkv.split(H, dim=-2)
+        return self.Wo(layout.attend(q, k, v, self.half_window, self.theta))
 
 
 class ModernBertLayer(nn.Module):
@@ -354,9 +420,9 @@ class ModernBertLayer(nn.Module):
             quantized, cfg.intermediate_size, h, dtype, use_bias=False, device=device
         )
 
-    def forward(self, hidden, bias):
+    def forward(self, hidden, layout):
         normed = hidden if self.attn_norm is None else self.attn_norm(hidden)
-        hidden = hidden + self.attn(normed, bias)
+        hidden = hidden + self.attn(normed, layout)
         a, b = self.Wi(self.mlp_norm(hidden)).chunk(2, dim=-1)  # GeGLU
         return hidden + self.Wo(self.act(a) * b)
 
@@ -375,18 +441,21 @@ class ModernBertBackbone(nn.Module):
         self.final_norm = LayerNorm(h, eps, use_bias=False, device=device)
 
     def forward(self, input_ids, attention_mask, token_type_ids=None):
-        cfg = self.cfg
-        L = input_ids.shape[1]
-        hidden = self.emb_norm(self.word_embeddings(input_ids))
-        allow = attention_mask.bool()[:, None, None, :]
-        idx = torch.arange(L, device=input_ids.device)
-        # Sliding-window attention on local layers: |i - j| <= window/2.
-        window = (idx[:, None] - idx[None, :]).abs() <= cfg.local_attention // 2
-        global_bias = _mask_bias(allow)
-        local_bias = _mask_bias(allow & window[None, None, :, :])
-        for i in range(cfg.num_hidden_layers):
-            layer = getattr(self, f"layer_{i}")
-            hidden = layer(hidden, global_bias if layer.attn.is_global else local_bias)
+        """[B, L] ids and mask -> [B, L, h] float32: the JAX chain
+        (`_Padded`), on any device. The encoder runs `forward_packed`."""
+        return self._layers(self.word_embeddings(input_ids),
+                            _Padded(attention_mask, self.cfg.local_attention // 2))
+
+    def forward_packed(self, input_ids, positions, cu_seqlens):
+        """[N] live token ids of documents laid end to end, each token's
+        position in its document [N] and cu_seqlens [B + 1] int32 ->
+        [N, h] float32 (HF ModernBERT's unpadded path)."""
+        return self._layers(self.word_embeddings(input_ids), _Packed(positions, cu_seqlens))
+
+    def _layers(self, emb, layout):
+        hidden = self.emb_norm(emb)
+        for i in range(self.cfg.num_hidden_layers):
+            hidden = getattr(self, f"layer_{i}")(hidden, layout)
         return self.final_norm(hidden)
 
 
@@ -425,7 +494,16 @@ class ColbertModel(nn.Module):
         )
 
     def forward(self, input_ids, attention_mask, token_type_ids=None):
-        hidden = self.backbone(input_ids, attention_mask, token_type_ids)
+        return self._head(self.backbone(input_ids, attention_mask, token_type_ids))
+
+    def forward_packed(self, input_ids, positions, cu_seqlens):
+        """ModernBERT only: the packed forward (`ModernBertBackbone.
+        forward_packed`) -> [N, projection_dim] float32, L2-normalized."""
+        if not isinstance(self.backbone, ModernBertBackbone):
+            raise EncodingError("the packed forward is ModernBERT's; BERT runs padded")
+        return self._head(self.backbone.forward_packed(input_ids, positions, cu_seqlens))
+
+    def _head(self, hidden):
         proj = self.projection(hidden.float())
         return proj / torch.clamp(proj.norm(dim=-1, keepdim=True), min=1e-12)
 

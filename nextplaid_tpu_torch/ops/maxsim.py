@@ -7,6 +7,9 @@ document tokens are excluded from the max.
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import numpy as np
 import torch
 
 
@@ -60,3 +63,32 @@ def maxsim_pairwise(
     per_token = sim.max(dim=-1).values  # [Q, R, Tq]
     keep = query_mask[:, None, :] & torch.isfinite(per_token)
     return torch.where(keep, per_token, torch.zeros_like(per_token)).sum(-1)
+
+
+def rerank_scores(query: np.ndarray, docs: Sequence[np.ndarray], device) -> np.ndarray:
+    """Exact f32 MaxSim of each of `docs` ([T_i, d] arrays) against
+    `query` [Tq, d] on `device`, all documents in one batch: one copy of
+    their tokens laid end to end, one [Tq, sum T_i] product, a per-document
+    max and one readback. Returns [len(docs)] float32; a document with no
+    token scores 0. The rerank handlers' scoring."""
+    q = np.asarray(query, np.float32)
+    if q.ndim != 2:
+        raise ValueError(f"query must be [tokens, dim], got shape {q.shape}")
+    arrs = [np.asarray(d, np.float32) for d in docs]
+    for a in arrs:
+        if a.ndim != 2 or a.shape[1] != q.shape[1]:
+            raise ValueError(f"documents must be [tokens, {q.shape[1]}], got shape {a.shape}")
+    if not arrs:
+        return np.zeros(0, np.float32)
+    lens = np.fromiter((a.shape[0] for a in arrs), np.int64, len(arrs))
+    q_t = torch.from_numpy(q).to(device)
+    d_t = torch.from_numpy(np.concatenate(arrs)).to(device)
+    doc_of = torch.repeat_interleave(
+        torch.arange(len(arrs), device=device), torch.from_numpy(lens).to(device),
+        output_size=int(lens.sum()),
+    )
+    sim = q_t @ d_t.T  # [Tq, T]
+    best = torch.full((q.shape[0], len(arrs)), float("-inf"), device=device)
+    best.scatter_reduce_(1, doc_of.expand_as(sim), sim, "amax")
+    best = torch.where(torch.isfinite(best), best, torch.zeros_like(best))
+    return best.sum(0).cpu().numpy()

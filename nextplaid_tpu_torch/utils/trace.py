@@ -12,7 +12,12 @@ stages and its union grid build (`staged.select_prune`,
 `staged.union_grid`) and the grid's token slots and live tokens
 (`staged.union_token_slots`, `staged.union_live_tokens`). A build's
 k-means is recorded whether tracing is on or not, flagged `setup`
-(`build.kmeans`, once per build).
+(`build.kmeans`, once per build). Each call of the ColBERT encoder adds
+host spans `encode.prepare`, and for each forward the device span
+`encode.forward` and counters `encode.live_tokens`, `encode.token_slots`,
+`encode.attn_pairs_global` and `encode.attn_pairs_local`
+(`encoder.colbert`), keyed to the batch of the enclosing `batch_scope`:
+a rerank request's query and documents share one.
 While a profiler records, each host span is also a `record_function`
 range, so it lies on the profiler's own timeline beside the device work it
 launched; the ring's `perf_counter_ns` times map onto that timeline through
@@ -65,6 +70,9 @@ _batches = itertools.count(1)
 _parent: contextvars.ContextVar[Optional[int]] = contextvars.ContextVar(
     "nextplaid_trace_parent", default=None
 )
+_scope: contextvars.ContextVar[Optional[int]] = contextvars.ContextVar(
+    "nextplaid_trace_batch", default=None
+)
 
 
 def active() -> bool:
@@ -88,6 +96,22 @@ def recording() -> Iterator[None]:
 def next_batch() -> int:
     """A fresh batch id, for the records of one search batch."""
     return next(_batches)
+
+
+@contextlib.contextmanager
+def batch_scope(batch: Optional[int] = None) -> Iterator[int]:
+    """Within the block, `current_batch()` is `batch` (a fresh id when
+    None): the calls of one request key their records to it."""
+    token = _scope.set(next_batch() if batch is None else batch)
+    try:
+        yield _scope.get()
+    finally:
+        _scope.reset(token)
+
+
+def current_batch() -> Optional[int]:
+    """The enclosing `batch_scope`'s batch, or None outside one."""
+    return _scope.get()
 
 
 def _append(rec: Record) -> None:

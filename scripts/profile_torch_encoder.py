@@ -5,7 +5,8 @@
 Builds the encoder of chip_smoke.py's encoder phase (GTE-ModernColBERT-v1's
 widths, random weights from seed 0, bf16; `--quantized` for the int8 mode)
 and, under torch.profiler:
-  1. runs `--passes` forwards of one batch of 64 documents x 300 tokens and
+  1. runs `--passes` packed forwards (`ColbertModel.forward_packed`, what
+     `encode_documents` runs) of one batch of 64 documents' live tokens and
      prints the device time a forward by PyTorch op (self time of each
      aten op, so a matmul's kernels count once) and by kernel;
   2. runs `encode_documents` over `--docs` of chip_smoke.py's documents and
@@ -77,12 +78,12 @@ def main() -> int:
                   batch_size=chip_smoke.ENC_BATCH, quantized=args.quantized, device=device)
     texts = chip_smoke.make_texts(args.docs, chip_smoke.ENC_WORDS, tok.n_words)
     ids, attn, _, _ = enc._prepare(texts[: chip_smoke.ENC_BATCH], is_query=False)
-    ids, attn = torch.from_numpy(ids).to(device), torch.from_numpy(attn).to(device)
+    packed = chip_smoke.packed_batch(ids, attn, device)
     mode = "int8" if args.quantized else "bf16"
 
     def forward():
         with torch.inference_mode():
-            enc.model(ids, attn)
+            enc.model.forward_packed(*packed)
 
     forward()
     torch.cuda.synchronize()
@@ -94,7 +95,8 @@ def main() -> int:
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.passes
     ops, kernels, busy = device_ms(prof, args.passes)
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "path": f"forward {mode} 64 x {ids.shape[1]}",
+        "device": torch.cuda.get_device_name(0),
+        "path": f"packed forward {mode} 64 documents, {packed[0].numel()} tokens",
         "passes": args.passes, "wall_ms": wall_ms, "device_busy_ms": busy,
         "device_ms_by_op": ops, "device_ms_by_kernel": kernels,
     }), flush=True)

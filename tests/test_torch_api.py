@@ -282,6 +282,9 @@ PARITY_REQUESTS = [
     ("rerank-b64", "POST", "/rerank",
      {"query_b64": _b64([QUERIES[1]])[0]["embeddings_b64"], "query_shape": list(QUERIES[1].shape),
       "documents": [doc_payload(DOCS[i]) for i in (16, 17, 18)]}),
+    # Many documents of unequal lengths (6-20 tokens) scored in one batch.
+    ("rerank-many-unequal", "POST", "/rerank",
+     {"query": QUERIES[2].tolist(), "documents": _b64(DOCS[20:60])}),
     ("404-index", "GET", "/indices/missing", None),
     ("404-search", "POST", "/indices/missing/search", {"queries": _b64(QUERIES[:1])}),
     ("404-route", "GET", "/nothing/here", None),
