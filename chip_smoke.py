@@ -5,7 +5,8 @@
 Builds the three CUDA kernel sources (bf16 MaxSim, int8 MaxSim and the
 MaxSim variant family, all three instances of the wgmma/TMA template of
 csrc/maxsim_wgmma.cuh) from this checkout, one nvcc each, at once, then the
-staged route's union grid (csrc/union_grid.cu), fails on a
+staged route's union grid (csrc/union_grid.cu) and stage-3b scores
+(csrc/approx_codes.cu), fails on a
 serialized-wgmma warning in the build logs, and holds each MaxSim kernel against
 its plain PyTorch version on the card: the edge cases, a main-path slice and
 the shapes a 64-row tiling can get wrong (TILING_CASES). Then drives the
@@ -31,10 +32,12 @@ port's paths:
   5. the staged PLAID pipeline on that full index (`mode="staged"`, the
      operating points of scripts/profile_megascale.py and the "quality"
      preset), stage 4's transient union grid built by csrc/union_grid.cu and
-     scored by the bf16 MaxSim kernel (one launch of each a batch): QPS,
+     scored by the bf16 MaxSim kernel (one launch of each a batch), stage 3b
+     of the "codes" points one launch of csrc/approx_codes.cu a batch: QPS,
      batch-1 latency, recall@10 against the same oracle, a batch's time
-     stage by stage, and both kernels against their plain versions at the
-     largest union.
+     stage by stage, both stage-4 kernels against their plain versions at
+     the largest union and the stage-3b kernel at the largest "codes" pool
+     ("quality"), with a planted fault it must refuse.
   6. index mutations at SciFact scale, on the index of phase 2 (this slice's
      path): served loads with append headroom (`capacity_factor=1.5,
      grid_aware_capacity=True`) pinned bf16 and int8, ingest batches of 32
@@ -86,7 +89,8 @@ port's paths:
      codebook and stage 4 through the union grid and bf16 kernels (each
      held against its plain version at the largest union), against the flat
      control (the same index with its rq_* fields None) and the f32
-     exhaustive oracle.
+     exhaustive oracle; then the stage-3b kernel on the flat control at the
+     LoTTE staged cell's operating point (K 65,536, pool 4,096).
   10. code search (`cgrep`, this slice's path): `ProjectIndexer` over a copy
      of this checkout's files with the encoder at GTE-ModernColBERT-v1's
      widths (random weights from seed 0, a character-fallback WordPiece made
@@ -138,7 +142,7 @@ port's paths:
   14. the CUDA image replayed on the card (the twelfth slice's path):
      without docker, a directory holding only docker/Dockerfile.cuda's COPY
      set stands for /app; its build step (the served kernels: both MaxSim
-     kernels and the union grid, and the native host library) and import
+     kernels, the union grid and stage 3b, and the native host library) and import
      check run there; then the server
      starts from the image's ENTRYPOINT and docker-compose.yml's command
      and environment (docker-compose.cuda.yml laid over it; the volumes
@@ -803,7 +807,8 @@ def grid_only_phase(device, mk, n_docs=MEGA_DOCS):
             raise AssertionError(f"grid-only recall@10 refined {r_ref} < {MIN_RECALL} or "
                                  f"unrefined {r_raw} < {MIN_RECALL_INT8}")
         # This slice's main path: staged search over the same full index.
-        staged = staged_phase(full, device, mk, batches, queries, oracle)  # (bf16, union grid)
+        # (bf16, union grid, stage 3b)
+        staged = staged_phase(full, device, mk, batches, queries, oracle)
         del full
         gc.collect()
         torch.cuda.empty_cache()
@@ -1244,18 +1249,137 @@ def union_grid_check(index, union_ids, shapes, label):
             "live_tokens": live_tokens}
 
 
+# Stage 3b's kernel vs its plain version: the same f32 lookups and maxima,
+# the sum over query tokens in another order; allowed |difference| is this
+# much absolute plus this fraction of the score.
+APPROX_CODES_TOL = 1e-6
+
+
+def stage3b_args(index, queries, qmask, shapes):
+    """The arguments stage 3b gets in `search_pipeline` on a flat-centroid
+    index at a "codes" point, taken from one run of stages 1-3
+    (`stage4_union`, which runs stage 3b too). Returns (args, kwargs)."""
+    from nextplaid_tpu_torch.index import search as S
+
+    seen = []
+    scores = S._approx_codes_scores
+
+    def capture(*args, **kwargs):
+        seen.append((args, kwargs))
+        return scores(*args, **kwargs)
+
+    S._approx_codes_scores = capture
+    try:
+        stage4_union(index, queries, qmask, shapes)
+    finally:
+        S._approx_codes_scores = scores
+    if len(seen) != 1:
+        raise AssertionError(f"stages 1-3 ran stage 3b {len(seen)} times, not once")
+    return seen[0]
+
+
+def approx_codes_gap(got, want, label):
+    """The largest absolute and relative gap of stage-3b scores `got` to
+    `want`; raises where a gap passes APPROX_CODES_TOL or where `want` is 0
+    (masked query tokens, dead slots, ids past the live docs) and `got` is
+    not exactly 0."""
+    gap = (got - want).abs()
+    zeros = want == 0
+    if bool((gap > APPROX_CODES_TOL * (1 + want.abs())).any()) or bool((got[zeros] != 0).any()):
+        raise AssertionError(f"{label}: stage-3b scores differ by up to {float(gap.max()):.3g} "
+                             f"(tolerance {APPROX_CODES_TOL} + that of the score), "
+                             f"{int((got[zeros] != 0).sum())} of {int(zeros.sum())} zeros not zero")
+    rel = gap[~zeros] / want[~zeros].abs()
+    return float(gap.max()), float(rel.max()) if rel.numel() else 0.0
+
+
+def approx_codes_bytes(index, cand_ids, k, tq, td):
+    """What stage 3b's kernel must move through device memory for the pool
+    `cand_ids` [Q, pool] against a [Q, K, Tq] f32 table: the table once,
+    each live token's code, each slot's id, doclen and offset, the query
+    mask and the output. Returns (bytes, live tokens); the table rows it
+    looks up, live tokens x Tq x 4 bytes, come from L2."""
+    q_n, pool = cand_ids.shape
+    safe = torch.clamp(cand_ids, 0, index.num_docs_padded - 1)
+    lens = torch.where(cand_ids < index.num_documents, index.doclens[safe], 0)
+    live_tokens = int(torch.clamp(lens, max=td).sum())
+    moved = (q_n * k * tq * 4 + live_tokens * 4 + q_n * pool * (cand_ids.element_size() + 8)
+             + q_n * tq + q_n * pool * 4)
+    return moved, live_tokens
+
+
+def approx_codes_check(index, queries, qmask, shapes, label):
+    """csrc/approx_codes.cu against its plain version
+    (`_approx_codes_scores_eager` on the table in f64) on one batch's
+    stage-3b pool (`approx_codes_gap`), one launch for the stage, and a
+    planted fault (the eager loop with each doc's last live token skipped)
+    that must fail the same comparison. The kernel alone, the stage (the
+    table's transpose and the kernel) and the eager loop timed (CUDA
+    events), beside the bound of the bytes the kernel moves at the HBM rate
+    (`approx_codes_bytes`; `row_gb`: the table rows it looks up, which L2
+    serves). Returns the numbers for the kernels line; the launches of the
+    check and the timing are taken off the kernel's count."""
+    from nextplaid_tpu_torch.index import search as S
+    from nextplaid_tpu_torch.ops import approx_codes as A
+
+    before = A.approx_codes.launches
+    args, kwargs = stage3b_args(index, queries, qmask, shapes)
+    _, s_masked, qmask, cand_ids, _ = args
+    got = S._approx_codes_scores(*args, **kwargs)
+    if A.approx_codes.launches != before + 2:
+        raise AssertionError(f"{label}: _approx_codes_scores did not launch the stage-3b kernel")
+    # The kernel sums the maxima in f64 and rounds once: the eager loop on
+    # the table in f64.
+    want = S._approx_codes_scores_eager(args[0], s_masked.double(), *args[2:], **kwargs)
+    max_abs, max_rel = approx_codes_gap(got, want, label)
+    shortened = dataclasses.replace(index, doclens=torch.clamp(index.doclens - 1, min=0))
+    skipped = S._approx_codes_scores_eager(shortened, *args[1:], **kwargs)
+    fault_gap = float((skipped - want).abs().max())
+    try:
+        approx_codes_gap(skipped, want, f"{label} (planted fault)")
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError(f"{label}: the check passed scores with each doc's last token skipped")
+    q_n, k, tq = s_masked.shape[0], s_masked.shape[2], s_masked.shape[1]
+    pool = cand_ids.shape[1]
+    kargs = (s_masked.transpose(1, 2).contiguous(), qmask.contiguous(), cand_ids.contiguous(),
+             index.doclens, index.doc_offsets, index.codes, index.num_documents,
+             shapes.doc_token_cap)
+    kernel_ms = time_ms(lambda: A.approx_codes(*kargs), reps=20)
+    stage_ms = time_ms(lambda: S._approx_codes_scores(*args, **kwargs), reps=10)
+    plain_ms = time_ms(lambda: S._approx_codes_scores_eager(*args, **kwargs), reps=1)
+    A.approx_codes.launches = before
+    moved, live_tokens = approx_codes_bytes(index, cand_ids, k, tq, shapes.doc_token_cap)
+    bound_ms = 1e3 * moved / PEAK_HBM_BYTES
+    row_gb = live_tokens * tq * 4 / 1e9
+    print(f"stage-3b kernel [{label}]: {q_n} queries x pool {pool}, K {k}, Tq {tq}, Td "
+          f"{shapes.doc_token_cap}, {live_tokens} live tokens ({row_gb:.2f} GB of table rows); "
+          f"vs the eager loop max abs {max_abs:.3g}, max rel {max_rel:.3g}, zeros exact; planted "
+          f"fault refused (each doc's last token skipped: max abs {fault_gap:.3g}); kernel "
+          f"{kernel_ms:.3f} ms, with the transpose {stage_ms:.3f} ms, eager loop "
+          f"{plain_ms:.3f} ms, bytes bound "
+          f"{bound_ms:.3f} ms ({100 * bound_ms / kernel_ms:.1f}% of it)", flush=True)
+    return {"max_abs_err": max_abs, "max_rel_err": max_rel, "ms": kernel_ms,
+            "stage_ms": stage_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "shape": [q_n, pool, k, tq], "live_tokens": live_tokens, "row_gb": row_gb,
+            "fault_gap": fault_gap}
+
+
 def staged_phase(full, device, mk, batches, queries, oracle):
     """This slice's main path at full width: staged PLAID search over the
     full 473,000-doc index, its union grid built by csrc/union_grid.cu and
-    scored by the bf16 MaxSim kernel, one launch of each a batch. Returns
-    the bf16 kernel's staged numbers and the union grid kernel's for the
-    kernels line."""
+    scored by the bf16 MaxSim kernel, one launch of each a batch, and at the
+    "codes" points stage 3b one launch of csrc/approx_codes.cu a batch.
+    Returns the bf16 kernel's staged numbers, the union grid kernel's and
+    the stage-3b kernel's for the kernels line."""
     from nextplaid_tpu_torch.index import SearchParameters, search_batch, search_batch_async
     from nextplaid_tpu_torch.index import search as S
     from nextplaid_tpu_torch.index.config import resolve_target_recall
+    from nextplaid_tpu_torch.ops import approx_codes as A
     from nextplaid_tpu_torch.ops import union_grid as U
 
-    kernel, union = mk.maxsim_grid_scores, U.union_grid
+    kernel, union, approx = mk.maxsim_grid_scores, U.union_grid, A.approx_codes
     q_arr, q_mask = S._pad_queries(batches[0], full.dim)
     q_dev = torch.from_numpy(q_arr).to(device)
     m_dev = torch.from_numpy(q_mask).to(device)
@@ -1263,12 +1387,12 @@ def staged_phase(full, device, mk, batches, queries, oracle):
               for label, kw, recorded in STAGED_POINTS]
     points.append(('preset "quality"', SearchParameters.preset("quality", **STAGED_COMMON),
                    MIN_RECALL_QUALITY))
-    total_launches = union_launches = 0
+    total_launches = union_launches = approx_launches = 0
     for label, params, floor in points:
         resolved = resolve_target_recall(params)
         search_batch(full, batches[0], params)  # warm-up
         torch.cuda.synchronize()
-        kernel.launches = union.launches = 0
+        kernel.launches = union.launches = approx.launches = 0
         pass_s, out, pending = [], None, None
         for _ in range(STAGED_PASSES):
             torch.cuda.synchronize()
@@ -1277,13 +1401,17 @@ def staged_phase(full, device, mk, batches, queries, oracle):
                        for i in range(MEGA_IN_FLIGHT)]
             out = [p.result() for p in pending]
             pass_s.append(time.perf_counter() - t0)
-        launches, u_launches = kernel.launches, union.launches
-        if launches != STAGED_PASSES * MEGA_IN_FLIGHT or u_launches != launches:
-            raise AssertionError(f"staged [{label}] launched the bf16 kernel {launches} times and "
-                                 f"the union grid kernel {u_launches} times in "
+        launches, u_launches, a_launches = kernel.launches, union.launches, approx.launches
+        want_a = launches if resolved.approx_score == "codes" else 0
+        if (launches != STAGED_PASSES * MEGA_IN_FLIGHT or u_launches != launches
+                or a_launches != want_a):
+            raise AssertionError(f"staged [{label}] launched the bf16 kernel {launches} times, "
+                                 f"the union grid kernel {u_launches} times and the stage-3b "
+                                 f"kernel {a_launches} times in "
                                  f"{STAGED_PASSES * MEGA_IN_FLIGHT} batches")
         total_launches += launches
         union_launches += u_launches
+        approx_launches += a_launches
         check_results(out[0], MEGA_BATCH)
         shapes = pending[0].shapes
         if shapes is None or not shapes.rerank_kernel:
@@ -1315,8 +1443,8 @@ def staged_phase(full, device, mk, batches, queries, oracle):
               f"{overflow}; per batch ms: stages 1-2 {stage['stage12']:.3f}, 3 {stage['stage3']:.3f}, "
               f"3b {stage['stage3b']:.3f}, union {stage['union']:.3f}, grid build "
               f"{stage['stage4_grid']:.3f}, stage-4 kernel {stage['stage4_kernel']:.3f}, 5 "
-              f"{stage['stage5']:.3f}; kernel launches {launches} bf16, {u_launches} union grid "
-              f"(one each per batch)", flush=True)
+              f"{stage['stage5']:.3f}; kernel launches {launches} bf16, {u_launches} union grid, "
+              f"{a_launches} stage 3b (one each per batch)", flush=True)
         if recall < floor:
             raise AssertionError(f"staged [{label}] recall@10 {recall} < {floor}")
 
@@ -1338,6 +1466,11 @@ def staged_phase(full, device, mk, batches, queries, oracle):
     shapes = S.PipelineShapes.derive(full, params, MEGA_BATCH, q_arr.shape[1])
     union_ids = stage4_union(full, q_dev, m_dev, shapes)
     union_numbers = union_grid_check(full, union_ids, shapes, f"staged stage 4 [{label}]")
+    # Stage 3b's kernel at the largest "codes" pool, the "quality" preset's.
+    quality = resolve_target_recall(SearchParameters.preset("quality", **STAGED_COMMON))
+    approx_numbers = approx_codes_check(
+        full, q_dev, m_dev, S.PipelineShapes.derive(full, quality, MEGA_BATCH, q_arr.shape[1]),
+        'staged preset "quality"')
     args, n_union = stage4_kernel_args(full, q_dev, m_dev, shapes, union_ids=union_ids)
     _, grid, doclens, _ = args
     max_err = check_kernel(kernel, mk.maxsim_grid_scores_reference, args,
@@ -1354,7 +1487,8 @@ def staged_phase(full, device, mk, batches, queries, oracle):
     return ({"staged_launches": total_launches, "staged_max_abs_err": max_err,
              "staged_ms": kernel_ms, "staged_plain_ms": plain_ms, "staged_bound_ms": bound_ms,
              "staged_bound_by": bound_by, "staged_shape": list(grid.shape)},
-            {"staged_launches": union_launches, **union_numbers})
+            {"staged_launches": union_launches, **union_numbers},
+            {"launches": approx_launches, **approx_numbers})
 
 
 class _Messages(logging.Handler):
@@ -2693,14 +2827,16 @@ def staged_point_runs(index, batches, params, kernel, q_dev, m_dev):
     """One operating point on one index: STAGED_PASSES passes of
     MEGA_IN_FLIGHT batches in flight, then one batch stage by stage (median
     of 3 runs, CUDA events). Returns (first batch's results, QPS list,
-    (bf16 kernel, union grid kernel) launches, stage ms dict, shapes)."""
+    (bf16 kernel, union grid kernel, stage-3b kernel) launches, stage ms
+    dict, shapes)."""
     from nextplaid_tpu_torch.index import search_batch, search_batch_async
     from nextplaid_tpu_torch.index import search as S
+    from nextplaid_tpu_torch.ops import approx_codes as A
     from nextplaid_tpu_torch.ops import union_grid as U
 
     search_batch(index, batches[0], params)  # warm-up
     torch.cuda.synchronize()
-    kernel.launches = U.union_grid.launches = 0
+    kernel.launches = U.union_grid.launches = A.approx_codes.launches = 0
     pass_s, out, pending = [], None, None
     for _ in range(STAGED_PASSES):
         torch.cuda.synchronize()
@@ -2709,7 +2845,7 @@ def staged_point_runs(index, batches, params, kernel, q_dev, m_dev):
                    for i in range(MEGA_IN_FLIGHT)]
         out = [p.result() for p in pending]
         pass_s.append(time.perf_counter() - t0)
-    launches = (kernel.launches, U.union_grid.launches)
+    launches = (kernel.launches, U.union_grid.launches, A.approx_codes.launches)
     shapes = pending[0].shapes
     if shapes is None or not shapes.rerank_kernel:
         raise AssertionError("staged search did not take the stage-4 kernel route")
@@ -2735,8 +2871,12 @@ def rq_phase(device, mk, n_docs=RQ_DOCS):
     does), so at a "codes" point the gate's control runs the flat index at
     "cells" with the same keep; the flat control at the point's own
     parameters is printed beside it. The union grid kernel builds each
-    batch's stage-4 grid on both. Returns the bf16 kernel's RQ numbers and
-    the union grid kernel's."""
+    batch's stage-4 grid on both; at a "codes" point the flat control's
+    stage 3b is one launch of csrc/approx_codes.cu a batch, the RQ index's
+    none. The stage-3b kernel is then checked on the flat control at the
+    LoTTE staged cell's operating point (K 65,536, pool 4,096). Returns the
+    bf16 kernel's RQ numbers, the union grid kernel's and the stage-3b
+    kernel's."""
     from nextplaid_tpu_torch.index import (
         DeviceIndex, IndexConfig, SearchParameters, create_index_streamed, search_batch,
     )
@@ -2801,7 +2941,7 @@ def rq_phase(device, mk, n_docs=RQ_DOCS):
         points = [(label, SearchParameters(**STAGED_COMMON, **kw))
                   for label, kw, _ in STAGED_POINTS]
         points.append(('preset "quality"', SearchParameters.preset("quality", **STAGED_COMMON)))
-        rq_launches = flat_launches = union_launches = 0
+        rq_launches = flat_launches = union_launches = approx_launches = 0
         for label, params in points:
             resolved = resolve_target_recall(params)
             got, qps, launches, stage, shapes = staged_point_runs(
@@ -2816,11 +2956,13 @@ def rq_phase(device, mk, n_docs=RQ_DOCS):
                 gate = recall_at_10(search_batch(flat, batches[0], cells), oracle)
                 gate_note = f" (flat at cells keep {shapes.prune_keep}: {gate:.4f})"
             want = STAGED_PASSES * MEGA_IN_FLIGHT
-            if launches != (want, want) or ctl_launches != (want, want):
-                raise AssertionError(f"rq [{label}] launched the bf16 and union grid kernels "
-                                     f"{launches} (RQ) / {ctl_launches} (flat) times in {want} "
-                                     f"batches")
-            (launches, u_rq), (ctl_launches, u_flat) = launches, ctl_launches
+            want_a = want if resolved.approx_score == "codes" else 0
+            if launches != (want, want, 0) or ctl_launches != (want, want, want_a):
+                raise AssertionError(f"rq [{label}] launched the bf16, union grid and stage-3b "
+                                     f"kernels {launches} (RQ) / {ctl_launches} (flat) times in "
+                                     f"{want} batches")
+            (launches, u_rq, _), (ctl_launches, u_flat, a_flat) = launches, ctl_launches
+            approx_launches += a_flat
             rq_launches += launches
             flat_launches += ctl_launches
             union_launches += u_rq + u_flat
@@ -2835,7 +2977,8 @@ def rq_phase(device, mk, n_docs=RQ_DOCS):
                   f"{stage['stage4_kernel']:.3f} ms); p50 {statistics.median(qps):.2f} QPS RQ vs "
                   f"{statistics.median(ctl_qps):.2f} flat; recall@10 {recall:.4f} RQ vs "
                   f"{ctl_recall:.4f} flat{gate_note}; kernel launches {launches} RQ + "
-                  f"{ctl_launches} flat, union grid {u_rq} RQ + {u_flat} flat", flush=True)
+                  f"{ctl_launches} flat, union grid {u_rq} RQ + {u_flat} flat, stage 3b "
+                  f"{a_flat} flat", flush=True)
             floor = gate - RECALL_SLACK
             if recall < floor:
                 raise AssertionError(f"rq [{label}] recall@10 {recall} < {floor}")
@@ -2864,12 +3007,21 @@ def rq_phase(device, mk, n_docs=RQ_DOCS):
               f"version {plain_ms:.3f} ms; launches {rq_launches} on the RQ index, "
               f"{flat_launches} on the flat control; the phase "
               f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-        del full, flat, grid, doclens
+        del grid, doclens
+        # Stage 3b's kernel on the flat control at the LoTTE staged cell's
+        # operating point (benchmark/traffic/batch64_staged_w2.json).
+        cell = SearchParameters(top_k=10, mode="staged", n_ivf_probe=8, n_full_scores=4096,
+                                centroid_score_threshold=0.4, approx_score="codes")
+        approx_numbers = approx_codes_check(
+            flat, q_dev, m_dev, S.PipelineShapes.derive(flat, cell, MEGA_BATCH, q_arr.shape[1]),
+            "flat control, the LoTTE staged cell's point")
+        del full, flat
         gc.collect()
         torch.cuda.empty_cache()
         return ({"rq_launches": rq_launches, "rq_max_abs_err": max_err, "rq_ms": kernel_ms,
                  "rq_plain_ms": plain_ms, "rq_bound_ms": bound_ms, "rq_bound_by": bound_by},
-                {"rq_launches": union_launches, **{f"rq_{k}": v for k, v in union_numbers.items()}})
+                {"rq_launches": union_launches, **{f"rq_{k}": v for k, v in union_numbers.items()}},
+                {"launches": approx_launches, **approx_numbers})
     finally:
         shutil.rmtree(RQ_DIR, ignore_errors=True)
 
@@ -4217,7 +4369,7 @@ def deploy_phase(device, mk, smi, topics, queries):
             libs = mapped_libraries(proc.pid)
             ours = {Path(x).name for x in libs if Path(x).parent == build_dir}
             foreign = [x for x in libs if ("maxsim_" in x or "union_grid" in x
-                                           or "nextplaid_host" in x)
+                                           or "approx_codes" in x or "nextplaid_host" in x)
                        and Path(x).parent != build_dir]
             need = {f"{src.stem}-{mk.build_tag(src)}.so" for src in mk.SERVED_SOURCES}
             if dtype == "bf16":  # the full load merges the chunks natively
@@ -4596,7 +4748,9 @@ def main() -> int:
           f"{torch.cuda.device_count()} visible", flush=True)
 
     # Phase 2: build the three MaxSim libraries from the sources in this
-    # checkout, one nvcc each, started together, then the union grid's.
+    # checkout, one nvcc each, started together, then the union grid's and
+    # stage 3b's.
+    from nextplaid_tpu_torch.ops import approx_codes as ac
     from nextplaid_tpu_torch.ops import maxsim_variants as mv
     from nextplaid_tpu_torch.ops import union_grid as ug
 
@@ -4605,8 +4759,9 @@ def main() -> int:
     mk._library()
     mk._library_int8()
     mv._library()
-    libs[ug.SOURCE.stem] = mk.build_library(ug.SOURCE)
-    ug._library()
+    for ops in (ug, ac):
+        libs[ops.SOURCE.stem] = mk.build_library(ops.SOURCE)
+        ops._library()
     build_s = time.perf_counter() - t0
     for lib_path in libs.values():
         log = lib_path.with_suffix(".log").read_text().splitlines()
@@ -4653,13 +4808,13 @@ def main() -> int:
     service = service_phase(device, mk, SERVICE_SRC, topics, queries)
     # Phases 10-11: the ninth slice's paths, the RQ codebook at its own
     # operating point, then code search over this checkout.
-    rq, rq_union = rq_phase(device, mk)
+    rq, rq_union, rq_approx = rq_phase(device, mk)
     codesearch_phase(device, mk)
     # Phases 12-14: grid-only int8 serving at scale (with the native merge and
     # the merge cache on its host load), then the third slice's main path:
     # staged search over the same corpus's full index, then that corpus as
     # sharded int8 grids (the sharded phase's (d)).
-    int8, (staged, staged_union), mega = grid_only_phase(device, mk)
+    int8, (staged, staged_union, staged_approx), mega = grid_only_phase(device, mk)
     # Phase 15: the eleventh slice's path, the entry points outside the
     # package: entry() and the dry run in this process, then the scripts.
     harness = harness_phase(device, mk, smi, topics)
@@ -4689,7 +4844,10 @@ def main() -> int:
     # stage-4 shape's, the rq_* keys the RQ one's. The attention kernel's
     # are the encoder phase's, its check at the rerank cell's shapes
     # included; its check and times are that check's global layer's, the
-    # local_* keys the local layer's.
+    # local_* keys the local layer's. The stage-3b kernel's are the staged
+    # path's and the RQ phase's flat control's ("codes" points); its check
+    # and times are the flat control's at the LoTTE staged cell's operating
+    # point, the staged_* keys the staged path's at "quality".
     bf16_entry = kernel_entry("maxsim_grid_scores", "nextplaid_tpu_torch/csrc/maxsim_bf16.cu",
                               "nextplaid_tpu/ops/maxsim_kernel.py:218", *bf16[1:])
     bf16_entry.update(scifact_launches=bf16_entry["launches"], **staged, **mutation["bf16"],
@@ -4718,6 +4876,13 @@ def main() -> int:
                                staged_union["plain_ms"], staged_union["bound_ms"], "bytes")
     union_entry.update({k: v for k, v in staged_union.items()
                         if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms")}, **rq_union)
+    approx_entry = kernel_entry("approx_codes", "nextplaid_tpu_torch/csrc/approx_codes.cu",
+                                "nextplaid_tpu_torch/index/search.py:_approx_codes_scores_eager",
+                                staged_approx["launches"] + rq_approx["launches"],
+                                rq_approx["max_abs_err"], rq_approx["ms"], rq_approx["plain_ms"],
+                                rq_approx["bound_ms"], "bytes")
+    approx_entry.update({k: v for k, v in rq_approx.items() if k not in approx_entry},
+                        **{f"staged_{k}": v for k, v in staged_approx.items()})
     attention_entry = kernel_entry("varlen_attention", "nextplaid_tpu_torch/ops/attention.py",
                                    "none: nextplaid_tpu/encoder/model.py's dense XLA attention",
                                    *(attention[k] for k in ("launches", "max_abs_err", "ms",
@@ -4725,7 +4890,7 @@ def main() -> int:
     attention_entry.update({k: v for k, v in attention.items() if k not in attention_entry},
                            route="triton")
     print(json.dumps({"kernels": [bf16_entry, int8_entry, variants, union_entry,
-                                  attention_entry]}), flush=True)
+                                  approx_entry, attention_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -30,8 +30,10 @@ Staged route (`mode="staged"`, or `"auto"` on an unpinned index above
                                         weight), per-doc segment sums, the
                                         top `prune_pool` docs per query
   stage 3b reference approximate score  `_approx_codes_scores`
-           (approx_score="codes")       (search.rs:448-457) re-ranks the pool
-                                        down to `prune_keep`
+           (approx_score="codes")       (search.rs:448-457; one launch of
+                                        csrc/approx_codes.cu on a card)
+                                        re-ranks the pool down to
+                                        `prune_keep`
   stage 4  union + shared exact scoring `_exact_on_candidates`: the batch's
                                         survivors are decompressed ONCE, into
                                         a transient bf16 grid (one launch of
@@ -84,6 +86,7 @@ from nextplaid_tpu_torch.index.exact import (
     refine_own_topk_device,
     refine_topk,
 )
+from nextplaid_tpu_torch.ops import approx_codes as approx_codes_ops
 from nextplaid_tpu_torch.ops import union_grid as union_grid_ops
 from nextplaid_tpu_torch.ops.maxsim_kernel import MAX_DOCS, maxsim_grid_scores
 from nextplaid_tpu_torch.ops.rq import pair_scores_topk
@@ -401,11 +404,32 @@ def _approx_codes_scores(
     Two lowerings, as in the JAX package (NEXT_PLAID_CODES_IMPL, default
     "gather"):
     - "gather": S is transposed once to [Q, K, Tq] so each candidate
-      token's lookup reads one contiguous [Tq] row; exact f32 lookups.
+      token's lookup reads one contiguous [Tq] row; exact f32 lookups. On a
+      CUDA index one launch of csrc/approx_codes.cu scores the whole pool;
+      on the CPU `_approx_codes_scores_eager` does.
     - "mxu": recompute the gathered values: since S[q,t,c] = q_t . centroid_c,
       the per-candidate score is MaxSim(query, centroids[codes(doc)]), a
       batched matmul over bf16-rounded centroids and queries with f32 sums.
     """
+    if shapes.codes_impl == "gather" and approx_codes_ops.supported(index.device):
+        return approx_codes_ops.approx_codes(
+            s_masked.transpose(1, 2).contiguous(), qmask.contiguous(), cand_ids.contiguous(),
+            index.doclens, index.doc_offsets, index.codes, index.num_documents,
+            shapes.doc_token_cap,
+        )
+    return _approx_codes_scores_eager(index, s_masked, qmask, cand_ids, shapes, queries)
+
+
+def _approx_codes_scores_eager(
+    index: DeviceIndex,
+    s_masked: torch.Tensor,
+    qmask: torch.Tensor,
+    cand_ids: torch.Tensor,
+    shapes: PipelineShapes,
+    queries: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`_approx_codes_scores` in eager PyTorch, tile by tile of candidates
+    (the kernel's plain version, and the "mxu" lowering)."""
     q_n, pool = cand_ids.shape
     td = shapes.doc_token_cap
     tq = s_masked.shape[1]

@@ -71,9 +71,10 @@ SOURCE = CSRC / "maxsim_bf16.cu"
 SOURCE_INT8 = CSRC / "maxsim_int8.cu"
 SOURCE_VARIANTS = CSRC / "maxsim_variants.cu"  # wrapper: ops/maxsim_variants.py
 SOURCES = (SOURCE, SOURCE_INT8, SOURCE_VARIANTS)
-# What a server launches: both MaxSim kernels and the staged route's union
-# grid (wrapper: ops/union_grid.py).
-SERVED_SOURCES = (SOURCE, SOURCE_INT8, CSRC / "union_grid.cu")
+# What a server launches: both MaxSim kernels, the staged route's union
+# grid (wrapper: ops/union_grid.py) and its stage-3b scores (wrapper:
+# ops/approx_codes.py).
+SERVED_SOURCES = (SOURCE, SOURCE_INT8, CSRC / "union_grid.cu", CSRC / "approx_codes.cu")
 HEADER_WGMMA = CSRC / "maxsim_wgmma.cuh"
 # Headers each source includes: their bytes are part of its build hash.
 HEADERS = {src: (HEADER_WGMMA,) for src in SOURCES}
@@ -218,12 +219,13 @@ def load_kernels() -> None:
     """Build (`build_served`) and load the served kernels. A server on a
     card calls this before it takes requests, so that no request, staged
     ones included, waits for nvcc."""
-    from nextplaid_tpu_torch.ops import union_grid
+    from nextplaid_tpu_torch.ops import approx_codes, union_grid
 
     build_served()
     _library()
     _library_int8()
     union_grid._library()
+    approx_codes._library()
 
 
 @dataclass(frozen=True)

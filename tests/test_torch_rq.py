@@ -61,6 +61,7 @@ from nextplaid_tpu_torch.ops import kmeans as torch_kmeans
 from nextplaid_tpu_torch.ops import rq
 from nextplaid_tpu_torch.storage.npy import IndexLayout
 from nextplaid_tpu_torch.utils.errors import StorageError
+from tests.staged_compare import _assert_same_topk_but_cut_ties
 from tests.test_torch_api import port_battery
 from tests.test_torch_build import _assert_same_files, carried_lloyd  # noqa: F401 (fixture)
 from tests.test_torch_staged import _cells_scores
@@ -69,7 +70,6 @@ from tests.test_torch_update import _assert_same_dir, carried_kmeans  # noqa: F4
 CPU = "cpu"
 DIM = 32
 TIE = 1e-6
-RTOL, ATOL = 1e-5, 1e-4
 
 # ---------------------------------------------------------------------------
 # 1. The reference battery
@@ -478,24 +478,6 @@ def _cut_ties(probe, params):
             if len(live) > n and live[n] >= live[n - 1] - TIE:
                 tied |= set(np.nonzero(np.abs(row - live[n - 1]) <= TIE)[0].tolist())
     return [tied] * approx.shape[0]
-
-
-def _assert_same_topk_but_cut_ties(ours, ref, cut_ties):
-    """Score-sorted top-k equal with a tie tolerance at the k-th score; a doc
-    in one list only must be a prune-cut tie of its query, or score at most
-    the other list's k-th score (a doc pushed out by such a tie)."""
-    for o, r, tied in zip(ours, ref, cut_ties):
-        assert len(o.passage_ids) == len(r.passage_ids) == 10
-        o_map, r_map = dict(zip(o.passage_ids, o.scores)), dict(zip(r.passage_ids, r.scores))
-        for doc in set(o_map) & set(r_map):
-            assert abs(o_map[doc] - r_map[doc]) <= ATOL + RTOL * abs(r_map[doc])
-        for doc in set(o_map) ^ set(r_map):
-            score = o_map.get(doc, r_map.get(doc))
-            other_kth = (r if doc in o_map else o).scores[-1]
-            assert doc in tied or score <= other_kth + ATOL + RTOL * abs(other_kth), (
-                doc, score, other_kth, tied)
-        if not tied:
-            np.testing.assert_allclose(o.scores, r.scores, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("case", sorted(PROBE_CASES))

@@ -150,23 +150,28 @@ def test_supported_indexes_route_to_the_kernel(monkeypatch):
 
 def test_served_build_and_start_up_take_the_union_grid(monkeypatch):
     """The image's build step (`build_served`) compiles union_grid.cu beside
-    both MaxSim kernels, and a server's start-up (`load_kernels`) loads its
-    library, so no staged request waits for nvcc."""
+    both MaxSim kernels and stage 3b's, and a server's start-up
+    (`load_kernels`) loads its library, so no staged request waits for
+    nvcc."""
+    from nextplaid_tpu_torch.ops import approx_codes as A
     from nextplaid_tpu_torch.ops import maxsim_kernel as mk
 
     built, loaded = [], []
     monkeypatch.setattr(mk, "build_library", lambda src: built.append(src.name) or src)
-    for owner, name in ((mk, "_library"), (mk, "_library_int8"), (U, "_library")):
+    for owner, name in ((mk, "_library"), (mk, "_library_int8"), (U, "_library"),
+                        (A, "_library")):
         monkeypatch.setattr(owner, name, lambda n=f"{owner.__name__}.{name}": loaded.append(n))
-    assert set(mk.build_served()) == {"maxsim_bf16", "maxsim_int8", "union_grid"}
-    assert sorted(built) == ["maxsim_bf16.cu", "maxsim_int8.cu", "union_grid.cu"]
+    assert set(mk.build_served()) == {"maxsim_bf16", "maxsim_int8", "union_grid", "approx_codes"}
+    assert sorted(built) == ["approx_codes.cu", "maxsim_bf16.cu", "maxsim_int8.cu",
+                             "union_grid.cu"]
     assert U.SOURCE in mk.SERVED_SOURCES
     built.clear()
     mk.load_kernels()
-    assert len(built) == 3
+    assert len(built) == 4
     assert loaded == ["nextplaid_tpu_torch.ops.maxsim_kernel._library",
                       "nextplaid_tpu_torch.ops.maxsim_kernel._library_int8",
-                      "nextplaid_tpu_torch.ops.union_grid._library"]
+                      "nextplaid_tpu_torch.ops.union_grid._library",
+                      "nextplaid_tpu_torch.ops.approx_codes._library"]
 
 
 @pytest.mark.parametrize("fault", [None, "one ulp", "two ulps", "dead slot", "doclen", "no launch"])
