@@ -1150,7 +1150,7 @@ def stage4_union(index, queries, qmask, shapes):
         ~qmask[:, :, None], float("-inf"))
     cells, weights = S._dedup_cells(*S._select_cells(s_masked, qmask, shapes, k), k)
     union_ids, _, _ = S._prune_candidates(index, cells, weights, shapes, s_masked=s_masked,
-                                          qmask=qmask, queries=queries)
+                                          qmask=qmask)
     return union_ids
 
 
@@ -1258,15 +1258,15 @@ APPROX_CODES_TOL = 1e-6
 def stage3b_args(index, queries, qmask, shapes):
     """The arguments stage 3b gets in `search_pipeline` on a flat-centroid
     index at a "codes" point, taken from one run of stages 1-3
-    (`stage4_union`, which runs stage 3b too). Returns (args, kwargs)."""
+    (`stage4_union`, which runs stage 3b too). Returns the arguments."""
     from nextplaid_tpu_torch.index import search as S
 
     seen = []
     scores = S._approx_codes_scores
 
-    def capture(*args, **kwargs):
-        seen.append((args, kwargs))
-        return scores(*args, **kwargs)
+    def capture(*args):
+        seen.append(args)
+        return scores(*args)
 
     S._approx_codes_scores = capture
     try:
@@ -1323,17 +1323,17 @@ def approx_codes_check(index, queries, qmask, shapes, label):
     from nextplaid_tpu_torch.ops import approx_codes as A
 
     before = A.approx_codes.launches
-    args, kwargs = stage3b_args(index, queries, qmask, shapes)
+    args = stage3b_args(index, queries, qmask, shapes)
     _, s_masked, qmask, cand_ids, _ = args
-    got = S._approx_codes_scores(*args, **kwargs)
+    got = S._approx_codes_scores(*args)
     if A.approx_codes.launches != before + 2:
         raise AssertionError(f"{label}: _approx_codes_scores did not launch the stage-3b kernel")
     # The kernel sums the maxima in f64 and rounds once: the eager loop on
     # the table in f64.
-    want = S._approx_codes_scores_eager(args[0], s_masked.double(), *args[2:], **kwargs)
+    want = S._approx_codes_scores_eager(args[0], s_masked.double(), *args[2:])
     max_abs, max_rel = approx_codes_gap(got, want, label)
     shortened = dataclasses.replace(index, doclens=torch.clamp(index.doclens - 1, min=0))
-    skipped = S._approx_codes_scores_eager(shortened, *args[1:], **kwargs)
+    skipped = S._approx_codes_scores_eager(shortened, *args[1:])
     fault_gap = float((skipped - want).abs().max())
     try:
         approx_codes_gap(skipped, want, f"{label} (planted fault)")
@@ -1347,8 +1347,8 @@ def approx_codes_check(index, queries, qmask, shapes, label):
              index.doclens, index.doc_offsets, index.codes, index.num_documents,
              shapes.doc_token_cap)
     kernel_ms = time_ms(lambda: A.approx_codes(*kargs), reps=20)
-    stage_ms = time_ms(lambda: S._approx_codes_scores(*args, **kwargs), reps=10)
-    plain_ms = time_ms(lambda: S._approx_codes_scores_eager(*args, **kwargs), reps=1)
+    stage_ms = time_ms(lambda: S._approx_codes_scores(*args), reps=10)
+    plain_ms = time_ms(lambda: S._approx_codes_scores_eager(*args), reps=1)
     A.approx_codes.launches = before
     moved, live_tokens = approx_codes_bytes(index, cand_ids, k, tq, shapes.doc_token_cap)
     bound_ms = 1e3 * moved / PEAK_HBM_BYTES
@@ -2990,8 +2990,7 @@ def rq_phase(device, mk, n_docs=RQ_DOCS):
         shapes = S.PipelineShapes.derive(full, params, MEGA_BATCH, q_arr.shape[1])
         cells, weights = S._dedup_cells(*S._select_cells_rq(q_dev, m_dev, full, shapes),
                                         full.num_centroids, threshold=shapes.threshold)
-        union_ids, _, _ = S._prune_candidates(full, cells, weights, shapes, qmask=m_dev,
-                                              queries=q_dev)
+        union_ids, _, _ = S._prune_candidates(full, cells, weights, shapes, qmask=m_dev)
         union_numbers = union_grid_check(full, union_ids, shapes, f"rq stage 4 [{label}]")
         grid, doclens = S._build_union_grid(full, union_ids, shapes)
         tq = q_arr.shape[1]

@@ -620,10 +620,7 @@ async def _run_search(
             if hybrid
             else params
         )
-        if subset is None and (
-            app_state.SEARCH_COALESCE
-            or app_state.coalesce_eligible(len(query_arrays))
-        ):
+        if subset is None and app_state.coalesce_eligible(len(query_arrays)):
             # Coalesced path: merge with concurrent requests that share
             # (index, params) into one device dispatch (state.py —
             # default "auto" coalesces only small requests; the measured

@@ -47,6 +47,7 @@ from nextplaid_tpu_torch import filtering
 from nextplaid_tpu_torch.api.models import IndexConfigStored
 from nextplaid_tpu_torch.filtering import text_search
 from nextplaid_tpu_torch.index import DeviceIndex, IndexConfig
+from nextplaid_tpu_torch.index.container import pin_settings
 from nextplaid_tpu_torch.index.delete import delete_with_options
 from nextplaid_tpu_torch.index.update import (
     UpdateConfig,
@@ -92,9 +93,6 @@ def coalesce_eligible(n_queries: int) -> bool:
     return False
 
 
-# Back-compat: a few tests/scripts flip this module flag directly; it
-# forces always-on when True and defers to the mode string when False.
-SEARCH_COALESCE = _SEARCH_COALESCE_MODE == "1"
 MAX_COALESCED_QUERIES = int(
     os.environ.get("NEXT_PLAID_MAX_COALESCED_QUERIES", "512")
 )
@@ -189,6 +187,24 @@ def search_fn_for(index):
     if isinstance(index, ShardedIndex):
         return search_batch_sharded
     return search_batch
+
+
+def _grid_only_dtype(mode: str) -> str:
+    """The pinned grid's dtype of the exact-only serve modes (grid_only,
+    sharded_grid): NEXT_PLAID_PIN_DTYPE, int8 by default. "auto" has no
+    meaning there (there is no unpinned fallback to fall to), so any value
+    but bf16 or int8 is int8, said out loud instead of silently quantizing."""
+    _, dtype = pin_settings(default_dtype="int8")
+    if dtype not in ("bf16", "int8"):
+        logger.warning(
+            "NEXT_PLAID_PIN_DTYPE=%r is not valid for "
+            "serve_mode=%s (bf16|int8); using int8 — "
+            "exact scores are int8-quantized",
+            dtype,
+            mode,
+        )
+        dtype = "int8"
+    return dtype
 
 
 class AppState:
@@ -308,18 +324,8 @@ class AppState:
             # re-shards.
             mesh = self._mesh()
             if mode == "sharded_grid":
-                dtype = os.environ.get("NEXT_PLAID_PIN_DTYPE", "int8")
-                if dtype not in ("bf16", "int8"):
-                    # Same loud coercion as the grid_only branch below.
-                    logger.warning(
-                        "NEXT_PLAID_PIN_DTYPE=%r is not valid for "
-                        "serve_mode=sharded_grid (bf16|int8); using int8 "
-                        "— exact scores are int8-quantized",
-                        dtype,
-                    )
-                    dtype = "int8"
                 return ShardedGridIndex.shard_grid_only(
-                    str(self.index_path(name)), mesh, dtype
+                    str(self.index_path(name)), mesh, _grid_only_dtype(mode)
                 )
             # Disk -> host -> shards: the corpus never transits a single
             # device. capacity_factor reserves per-shard slack so ingest
@@ -333,20 +339,9 @@ class AppState:
         if mode == "grid_only":
             from nextplaid_tpu_torch.index.container import load_grid_only
 
-            dtype = os.environ.get("NEXT_PLAID_PIN_DTYPE", "int8")
-            if dtype not in ("bf16", "int8"):
-                # "auto" has no meaning here (there is no unpinned
-                # fallback to fall to); say so instead of silently
-                # quantizing.
-                logger.warning(
-                    "NEXT_PLAID_PIN_DTYPE=%r is not valid for "
-                    "serve_mode=grid_only (bf16|int8); using int8 — "
-                    "exact scores are int8-quantized",
-                    dtype,
-                )
-                dtype = "int8"
             return load_grid_only(
-                str(self.index_path(name)), dtype=dtype, device=self.device
+                str(self.index_path(name)), dtype=_grid_only_dtype(mode),
+                device=self.device,
             )
         # Pin the decompressed token grid when it fits the device budget:
         # exhaustive search then skips per-batch decompress.

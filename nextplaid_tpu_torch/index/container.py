@@ -90,6 +90,32 @@ def _grid_bytes_for(rows: int, max_doclen: int, dim: int, dtype: str) -> int:
     return rows * _grid_td_for(max_doclen, dtype) * per_tok
 
 
+def pin_settings(
+    budget_mb: Optional[int] = None,
+    dtype: Optional[str] = None,
+    default_dtype: str = "auto",
+) -> Tuple[int, str]:
+    """The pin policy's (budget in MB, dtype): each explicit argument, else
+    NEXT_PLAID_PIN_BUDGET_MB (default 4096) and NEXT_PLAID_PIN_DTYPE (default
+    `default_dtype`: "auto" for `DeviceIndex`, "int8" for the exact-only
+    serve modes)."""
+    if budget_mb is None:
+        budget_mb = int(os.environ.get("NEXT_PLAID_PIN_BUDGET_MB", "4096"))
+    if dtype is None:
+        dtype = os.environ.get("NEXT_PLAID_PIN_DTYPE", default_dtype)
+    return budget_mb, dtype
+
+
+def pin_outcome(bf16_bytes: int, int8_bytes: int, budget_mb: int, dtype: str) -> str:
+    """The grid a pin gives, "bf16", "int8" or "none", from the grid's bytes
+    in each dtype: "bf16" and "int8" pin that dtype when it fits the budget;
+    "auto" (and any other value) pins bf16 when it fits, else int8 when
+    that fits."""
+    sizes = {"bf16": bf16_bytes, "int8": int8_bytes}
+    tries = (dtype,) if dtype in sizes else ("bf16", "int8")
+    return next((dt for dt in tries if sizes[dt] <= budget_mb << 20), "none")
+
+
 def _padded_doc_rows(ndocs: int, doc_capacity: int = 0) -> int:
     """Doc rows after padding: +1 sentinel slot (doclen 0), or `doc_capacity`
     rows when that is more (headroom for in-place appends), rounded up to
@@ -302,39 +328,31 @@ class DeviceIndex:
         bytes a token instead of 2d."""
         if self.has_grid or self.num_documents == 0:
             return self
-        if budget_mb is None:
-            budget_mb = int(os.environ.get("NEXT_PLAID_PIN_BUDGET_MB", "4096"))
-        if dtype is None:
-            dtype = os.environ.get("NEXT_PLAID_PIN_DTYPE", "auto")
+        budget_mb, dtype = pin_settings(budget_mb, dtype)
         if dtype not in ("bf16", "int8", "auto"):
             logging.getLogger(__name__).warning(
                 "NEXT_PLAID_PIN_DTYPE=%r is not one of bf16|int8|auto; "
                 "treating as auto",
                 dtype,
             )
-            dtype = "auto"
-        budget = budget_mb << 20
-        if dtype == "auto":
-            if self.grid_bytes("bf16") <= budget:
-                dtype = "bf16"
-            elif self.grid_bytes("int8") <= budget:
-                # Loud, because this changes scoring precision for every
-                # query on this index.
-                logging.getLogger(__name__).warning(
-                    "token grid auto-pinning falling back to int8: bf16 "
-                    "grid needs %d MB > budget %d MB. Exact-search scores "
-                    "are now int8-quantized. Set NEXT_PLAID_PIN_DTYPE=bf16 "
-                    "to keep full precision (unpinned if over budget), or "
-                    "int8 to silence this warning.",
-                    self.grid_bytes("bf16") >> 20,
-                    budget_mb,
-                )
-                dtype = "int8"
-            else:
-                return self
-        elif self.grid_bytes(dtype) > budget:
+        chosen = pin_outcome(
+            self.grid_bytes("bf16"), self.grid_bytes("int8"), budget_mb, dtype
+        )
+        if chosen == "none":
             return self
-        if dtype == "bf16":
+        if chosen == "int8" and dtype != "int8":
+            # The auto policy's fallback. Loud, because this changes
+            # scoring precision for every query on this index.
+            logging.getLogger(__name__).warning(
+                "token grid auto-pinning falling back to int8: bf16 "
+                "grid needs %d MB > budget %d MB. Exact-search scores "
+                "are now int8-quantized. Set NEXT_PLAID_PIN_DTYPE=bf16 "
+                "to keep full precision (unpinned if over budget), or "
+                "int8 to silence this warning.",
+                self.grid_bytes("bf16") >> 20,
+                budget_mb,
+            )
+        if chosen == "bf16":
             grid = _build_token_grid(self, self.grid_td("bf16"))
             return dataclasses.replace(self, token_grid=grid)
         grid, scales = _build_token_grid_int8(self, self.grid_td("int8"))
@@ -470,15 +488,11 @@ class DeviceIndex:
         )
         if self.token_grid is not None:
             dtype = "int8" if self.token_scales is not None else "bf16"
-            pinned = grown.with_token_grid(dtype=dtype)
-            if pinned.token_grid is None and dtype == "bf16":
-                # The doubled bf16 grid is over the pin budget: the auto
-                # path's downgrade (bf16 -> int8, with its warning ->
-                # unpinned).
-                pinned = grown.with_token_grid(dtype="auto")
-            grown = pinned
+            # A bf16 grid takes the auto policy: bf16 while it fits, else
+            # the downgrade to int8 (with its warning), else unpinned.
+            grown = grown.with_token_grid(dtype="auto" if dtype == "bf16" else dtype)
             if grown.token_grid is None:
-                budget_mb = int(os.environ.get("NEXT_PLAID_PIN_BUDGET_MB", "4096"))
+                budget_mb, _ = pin_settings()
                 logging.getLogger(__name__).warning(
                     "capacity growth dropped the pinned token grid: %s "
                     "grid needs %d MB > NEXT_PLAID_PIN_BUDGET_MB=%d; "
@@ -714,29 +728,19 @@ class DeviceIndex:
         query paying degraded scoring)."""
         if requested <= 1.0 or n_docs == 0:
             return max(requested, 1.0)
-        if budget_mb is None:
-            budget_mb = int(os.environ.get("NEXT_PLAID_PIN_BUDGET_MB", "4096"))
-        if dtype is None:
-            dtype = os.environ.get("NEXT_PLAID_PIN_DTYPE", "auto")
-        if dtype not in ("bf16", "int8"):
-            dtype = "auto"
-        budget = budget_mb << 20
+        budget_mb, dtype = pin_settings(budget_mb, dtype)
 
-        def outcome(rows: int) -> str:
-            def fits(dt: str) -> bool:
-                return _grid_bytes_for(rows, max_doclen, dim, dt) <= budget
-
-            if dtype == "auto":
-                if fits("bf16"):
-                    return "bf16"
-                return "int8" if fits("int8") else "none"
-            return dtype if fits(dtype) else "none"
-
-        def rows(factor: float) -> int:
+        def outcome(factor: float) -> str:
             cap = int(n_docs * factor) + 2 if factor > 1.0 else 0
-            return _padded_doc_rows(n_docs, cap)
+            rows = _padded_doc_rows(n_docs, cap)
+            return pin_outcome(
+                _grid_bytes_for(rows, max_doclen, dim, "bf16"),
+                _grid_bytes_for(rows, max_doclen, dim, "int8"),
+                budget_mb,
+                dtype,
+            )
 
-        plain, with_headroom = outcome(rows(1.0)), outcome(rows(requested))
+        plain, with_headroom = outcome(1.0), outcome(requested)
         if with_headroom == plain:
             return requested
         logging.getLogger(__name__).warning(

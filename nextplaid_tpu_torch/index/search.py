@@ -69,7 +69,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
-import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -97,6 +96,10 @@ NEG_INF = float("-inf")
 # Docs decompressed per step while the transient union grid is built: the
 # f32 temporaries of one step stay near 1 GB at Td 224, d 128.
 UNION_BUILD_TILE = 2048
+# Largest transient union grid stage 4 builds for the bf16 kernel (6 GiB);
+# a larger batch union takes the f32 scan.
+RERANK_GRID_BYTES = 6144 << 20
+KERNEL_VALUES = ("auto", "pallas", "xla", "off")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -121,6 +124,18 @@ def _span(batch: Optional[int], name: str):
     return _NO_SPAN if batch is None else trace.span(name, batch)
 
 
+def _use_kernels(kernel: str, device: torch.device) -> bool:
+    """Whether a batch takes the hand-written kernels (`SearchParameters.kernel`):
+    "pallas" forces them (their plain versions on CPU tensors), "auto" takes
+    them on a CUDA index, "xla" and "off" never do. The exact route and
+    staged stage 4 decide by this; bucketed grids always take the kernels."""
+    if kernel not in KERNEL_VALUES:
+        raise SearchError(
+            f"unknown kernel {kernel!r}: expected one of {', '.join(KERNEL_VALUES)}"
+        )
+    return kernel == "pallas" or (kernel == "auto" and device.type == "cuda")
+
+
 @dataclass(frozen=True)
 class PipelineShapes:
     """Shapes and switches of one staged search, derived as the JAX package
@@ -129,7 +144,7 @@ class PipelineShapes:
     Fields that decide WHICH DOCUMENTS come back equal the JAX value for the
     same index, parameters and arguments: nprobe, posting_budget,
     max_candidates, top_k, doc_token_cap, threshold, prune_keep, prune_pool,
-    approx_score, codes_impl, candidate_scope, overflow_policy,
+    approx_score, candidate_scope, overflow_policy,
     stage1_precision. `cand_tile` only tiles the stage-4 scan; the JAX
     package's `posting_chunk` (an XLA scan step) has no counterpart here,
     where the posting stream is handled whole. The caller passes the real
@@ -151,7 +166,6 @@ class PipelineShapes:
     prune_pool: int = 1024  # stage-3a pool fed to the 3b re-score (== keep
     # when approx_score == "cells"; 4x keep for "codes")
     approx_score: str = "cells"  # "cells" | "codes" (reference semantics)
-    codes_impl: str = "gather"  # 3b lowering: "gather" | "mxu"
     candidate_scope: str = "batch"  # "batch" | "per_query"
     overflow_policy: str = "exact"  # on posting-budget overflow: "exact"
     # fallback (re-run exhaustively) | "prune" (lowest-weight cells dropped,
@@ -223,10 +237,7 @@ class PipelineShapes:
         # kernel keeps the similarity blocks of the scan out of it.
         grid_bytes = _round_up(cmax, 64) * _round_up(td, 8) * index.dim * 2
         rerank_kernel = (
-            params.kernel not in ("xla", "off")
-            and (index.device.type == "cuda" or params.kernel == "pallas")
-            and grid_bytes
-            <= int(os.environ.get("NEXT_PLAID_RERANK_GRID_MB", "6144")) * (1 << 20)
+            _use_kernels(params.kernel, index.device) and grid_bytes <= RERANK_GRID_BYTES
         )
         return cls(
             num_queries=num_queries,
@@ -242,7 +253,6 @@ class PipelineShapes:
             prune_keep=keep,
             prune_pool=pool,
             approx_score=approx,
-            codes_impl=os.environ.get("NEXT_PLAID_CODES_IMPL", "gather"),
             rerank_kernel=rerank_kernel,
             candidate_scope=params.candidate_scope,
             overflow_policy=params.overflow_policy,
@@ -395,29 +405,22 @@ def _approx_codes_scores(
     qmask: torch.Tensor,  # [Q, Tq]
     cand_ids: torch.Tensor,  # [Q, pool] doc ids (capacity sentinel for empty)
     shapes: PipelineShapes,
-    queries: Optional[torch.Tensor] = None,  # [Q, Tq, d] for the "mxu" variant
 ) -> torch.Tensor:
     """Stage 3b: reference approximate scoring (search.rs:448-457) on the
     pooled survivors. For each candidate, gather its token codes and score
     sum_t max_{code in doc} S[q, t, code].
 
-    Two lowerings, as in the JAX package (NEXT_PLAID_CODES_IMPL, default
-    "gather"):
-    - "gather": S is transposed once to [Q, K, Tq] so each candidate
-      token's lookup reads one contiguous [Tq] row; exact f32 lookups. On a
-      CUDA index one launch of csrc/approx_codes.cu scores the whole pool;
-      on the CPU `_approx_codes_scores_eager` does.
-    - "mxu": recompute the gathered values: since S[q,t,c] = q_t . centroid_c,
-      the per-candidate score is MaxSim(query, centroids[codes(doc)]), a
-      batched matmul over bf16-rounded centroids and queries with f32 sums.
-    """
-    if shapes.codes_impl == "gather" and approx_codes_ops.supported(index.device):
+    S is transposed once to [Q, K, Tq] so each candidate token's lookup
+    reads one contiguous [Tq] row; exact f32 lookups. On a CUDA index one
+    launch of csrc/approx_codes.cu scores the whole pool; elsewhere
+    `_approx_codes_scores_eager` does."""
+    if approx_codes_ops.supported(index.device):
         return approx_codes_ops.approx_codes(
             s_masked.transpose(1, 2).contiguous(), qmask.contiguous(), cand_ids.contiguous(),
             index.doclens, index.doc_offsets, index.codes, index.num_documents,
             shapes.doc_token_cap,
         )
-    return _approx_codes_scores_eager(index, s_masked, qmask, cand_ids, shapes, queries)
+    return _approx_codes_scores_eager(index, s_masked, qmask, cand_ids, shapes)
 
 
 def _approx_codes_scores_eager(
@@ -426,10 +429,9 @@ def _approx_codes_scores_eager(
     qmask: torch.Tensor,
     cand_ids: torch.Tensor,
     shapes: PipelineShapes,
-    queries: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """`_approx_codes_scores` in eager PyTorch, tile by tile of candidates
-    (the kernel's plain version, and the "mxu" lowering)."""
+    (the kernel's plain version)."""
     q_n, pool = cand_ids.shape
     td = shapes.doc_token_cap
     tq = s_masked.shape[1]
@@ -437,24 +439,10 @@ def _approx_codes_scores_eager(
     nvec_pad = index.codes.shape[0]
     dev = cand_ids.device
     t_ar = torch.arange(td, device=dev)
-    impl = shapes.codes_impl
-
-    if impl == "mxu":
-        if queries is None:
-            raise ValueError('codes_impl="mxu" needs the queries')
-        cent = index.centroids.to(torch.bfloat16).float()
-        q_bf = (
-            torch.where(qmask[:, :, None], queries.float(), torch.zeros((), device=dev))
-            .to(torch.bfloat16).float().transpose(1, 2)
-        )  # [Q, d, Tq]
-        # tile targeting ~0.5 GB centroid-vector blocks
-        tile_budget = (512 << 20) // max(q_n * td * index.dim * 4, 1)
-    else:
-        s_t = s_masked.transpose(1, 2).contiguous()  # [Q, K, Tq]
-        q_ar = torch.arange(q_n, device=dev)[:, None]
-        # tile targeting ~256 MB gathered blocks
-        tile_budget = (256 << 20) // max(q_n * tq * td * 4, 1)
-    tile = int(np.clip(tile_budget, 1, pool))
+    s_t = s_masked.transpose(1, 2).contiguous()  # [Q, K, Tq]
+    q_ar = torch.arange(q_n, device=dev)[:, None]
+    # tile targeting ~256 MB gathered blocks
+    tile = int(np.clip((256 << 20) // max(q_n * tq * td * 4, 1), 1, pool))
 
     out = torch.empty((q_n, pool), dtype=torch.float32, device=dev)
     for s in range(0, pool, tile):
@@ -468,10 +456,7 @@ def _approx_codes_scores_eager(
         tok_pos = torch.clamp(offs[:, :, None] + t_ar, 0, nvec_pad - 1)
         codes = index.codes[tok_pos].long().reshape(q_n, n * td)
         tok_valid = t_ar < lens[:, :, None]  # [Q, n, Td]
-        if impl == "mxu":
-            g = torch.bmm(cent[codes], q_bf)  # [Q, n*Td, Tq]
-        else:
-            g = s_t[q_ar, codes]  # contiguous [Tq] rows
+        g = s_t[q_ar, codes]  # contiguous [Tq] rows
         g = g.view(q_n, n, td, tq).masked_fill(~tok_valid[:, :, :, None], NEG_INF)
         per_tok = g.amax(dim=2)  # [Q, n, Tq]
         per_tok = torch.where(
@@ -489,7 +474,6 @@ def _prune_candidates(
     shapes: PipelineShapes,
     s_masked: Optional[torch.Tensor] = None,  # [Q, Tq, K] for stage 3b "codes"
     qmask: Optional[torch.Tensor] = None,  # [Q, Tq]
-    queries: Optional[torch.Tensor] = None,  # [Q, Tq, d] for 3b's mxu variant
     marks: Optional[list] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Stage 3: flat weighted posting gathers -> per-query approximate
@@ -579,7 +563,7 @@ def _prune_candidates(
         # Stage 3b: REFERENCE approximate-score semantics on the pooled
         # survivors. Re-rank the pool, keep the top `keep`.
         code_scores = _approx_codes_scores(
-            index, s_masked, qmask, pool_ids, shapes, queries=queries
+            index, s_masked, qmask, pool_ids, shapes
         )  # [Q, pool]
         code_scores = torch.where(
             pool_ids < nd_live, code_scores, torch.full_like(code_scores, NEG_INF)
@@ -819,8 +803,7 @@ def search_pipeline(
 
     # Stage 3 (+3b): weighted posting streams -> approximate prune -> union.
     union_ids, overflow, mine = _prune_candidates(
-        index, cells, weights, shapes, s_masked=s_masked, qmask=qmask,
-        queries=queries, marks=marks,
+        index, cells, weights, shapes, s_masked=s_masked, qmask=qmask, marks=marks
     )
     del s_masked
     _mark(marks, "union")
@@ -1058,10 +1041,7 @@ def _dispatch(
     batch: Optional[int],
 ) -> PendingSearch:
     n = len(queries)
-    kernel_eligible = index.has_grid and (
-        params.kernel == "pallas"
-        or (params.kernel == "auto" and index.device.type == "cuda")
-    )
+    kernel_eligible = _use_kernels(params.kernel, index.device) and index.has_grid
     exact_eligible = params.mode == "exact" or (
         params.mode == "auto"
         and (

@@ -71,7 +71,7 @@ def main() -> None:
     ids = torch.stack([torch.randperm(DOCS, generator=gen, device=device)[:POOL]
                        for _ in range(Q)])
     ids[:, -16:] = DOCS  # the pipeline's sentinel
-    shapes = types.SimpleNamespace(doc_token_cap=TD, codes_impl="gather")
+    shapes = types.SimpleNamespace(doc_token_cap=TD)
     run = (index, s_masked, qmask, ids, shapes)
 
     got = S._approx_codes_scores(*run)

@@ -28,7 +28,8 @@ from nextplaid_tpu_torch.index import (
     search_batch,
     search_batch_async,
 )
-from nextplaid_tpu_torch.index.container import int8_grid_to_interleaved
+from nextplaid_tpu_torch.index import container as C
+from nextplaid_tpu_torch.index.container import int8_grid_to_interleaved, pin_outcome, pin_settings
 from nextplaid_tpu_torch.index.update import update_index
 from nextplaid_tpu_torch.utils.errors import UpdateError
 from tests.test_torch_search import _assert_same_topk
@@ -222,6 +223,75 @@ def test_plan_capacity_factor_matches_jax(case, caplog):
     warned = any("append headroom" in r.getMessage() for r in caplog.records)
     assert ours == J.DeviceIndex.plan_capacity_factor(*case)
     assert warned == (ours == 1.0 and case[3] > 1.0 and case[0] > 0)
+
+
+MB = 1 << 20
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        # (bf16 bytes, int8 bytes, budget MB, dtype, outcome)
+        (MB, MB // 2, 1, "auto", "bf16"),
+        (MB + 1, MB, 1, "auto", "int8"),
+        (MB + 1, MB + 1, 1, "auto", "none"),
+        (0, 0, 0, "auto", "bf16"),
+        (MB, MB // 2, 1, "bf16", "bf16"),
+        (MB + 1, MB // 2, 1, "bf16", "none"),
+        (MB // 2, MB // 4, 1, "int8", "int8"),
+        (MB + 1, MB, 1, "int8", "int8"),
+        (MB + 1, MB + 1, 1, "int8", "none"),
+        (MB + 1, MB, 1, "bogus", "int8"),
+    ],
+)
+def test_pin_outcome(case):
+    *args, want = case
+    assert pin_outcome(*args) == want
+
+
+@pytest.mark.parametrize("default", ["auto", "int8"])
+def test_pin_settings_take_arguments_then_environment(default, monkeypatch):
+    monkeypatch.delenv("NEXT_PLAID_PIN_BUDGET_MB", raising=False)
+    monkeypatch.delenv("NEXT_PLAID_PIN_DTYPE", raising=False)
+    assert pin_settings(default_dtype=default) == (4096, default)
+    monkeypatch.setenv("NEXT_PLAID_PIN_BUDGET_MB", "12")
+    monkeypatch.setenv("NEXT_PLAID_PIN_DTYPE", "bf16")
+    assert pin_settings(default_dtype=default) == (12, "bf16")
+    assert pin_settings(0, "int8", default_dtype=default) == (0, "int8")
+    assert pin_settings(7, default_dtype=default) == (7, "bf16")
+
+
+@pytest.mark.parametrize("dtype", ["auto", "bf16", "int8"])
+def test_with_token_grid_and_plan_agree(bases, dtype, monkeypatch, caplog):
+    """At budgets either side of each dtype's bytes, of a load without
+    headroom and of one with 1.5x: `with_token_grid` pins as `pin_outcome`
+    says, and `plan_capacity_factor` keeps the headroom exactly where both
+    loads pin alike, naming the two outcomes where it drops it. Grid bytes
+    are scaled 100x (both read `_grid_bytes_for`) so that MB budgets fall
+    between them."""
+    real = C._grid_bytes_for
+    monkeypatch.setattr(C, "_grid_bytes_for", lambda *a: 100 * real(*a))
+    plain = DeviceIndex.load(bases[60], device=CPU)
+    roomy = DeviceIndex.load(bases[60], capacity_factor=1.5, device=CPU)
+    sizes = [index.grid_bytes(dt) >> 20 for index in (plain, roomy) for dt in ("bf16", "int8")]
+    budgets = sorted({mb + side for mb in sizes for side in (0, 1)})
+
+    def pinned(index, budget):
+        out = index.with_token_grid(budget_mb=budget, dtype=dtype)
+        return "none" if out.token_grid is None else ("int8" if out.grid_is_int8 else "bf16")
+
+    alike = set()
+    for budget in budgets:
+        a, b = pinned(plain, budget), pinned(roomy, budget)
+        assert a == pin_outcome(plain.grid_bytes("bf16"), plain.grid_bytes("int8"), budget, dtype)
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger="nextplaid_tpu_torch.index.container"):
+            factor = DeviceIndex.plan_capacity_factor(
+                plain.num_documents, plain.max_doclen, plain.dim, 1.5, budget, dtype)
+        assert (factor == 1.5) == (a == b)
+        assert (f"from {a} to {b}" in caplog.text) == (a != b)
+        alike.add(a == b)
+    assert alike == {True, False}
 
 
 def test_grow_warns_when_grid_dropped(bases, monkeypatch, caplog):

@@ -73,7 +73,7 @@ def stage3b_case(seed, tq, device, td=24, q_n=5, pool=77):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    shapes = types.SimpleNamespace(doc_token_cap=td, codes_impl="gather")
+    shapes = types.SimpleNamespace(doc_token_cap=td)
     return index, t(s), t(qmask), t(ids), shapes
 
 
@@ -110,8 +110,9 @@ def test_cpu_scores_take_the_eager_loop_and_match_jax(tq, monkeypatch):
     ref = types.SimpleNamespace(
         **{n: jnp.asarray(getattr(index, n).numpy()) for n in ("codes", "doc_offsets", "doclens")},
         n_docs=index.num_documents, num_docs_padded=index.num_docs_padded)
+    jsh = types.SimpleNamespace(**vars(shapes), codes_impl="gather")  # the JAX lowering's name
     want = JS._approx_codes_scores(ref, jnp.asarray(s_masked.numpy()), jnp.asarray(qmask.numpy()),
-                                   jnp.asarray(ids.numpy(), jnp.int32), shapes)
+                                   jnp.asarray(ids.numpy(), jnp.int32), jsh)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     dead = (ids >= index.num_documents) | (ids == 3)
     assert (got[2] == 0).all() and (got[dead] == 0).all() and (got[0][~dead[0]] != 0).all()
@@ -134,10 +135,9 @@ def _search_calls(monkeypatch):
 
 
 def test_gather_on_a_supported_index_routes_to_the_kernel(monkeypatch):
-    """Where `supported` holds and the lowering is "gather",
-    `_approx_codes_scores` hands the transposed table, the mask, the pool
-    and the index's tensors to `approx_codes` and returns what it returns,
-    whatever the Tq; "mxu" keeps the eager loop."""
+    """Where `supported` holds, `_approx_codes_scores` hands the transposed
+    table, the mask, the pool and the index's tensors to `approx_codes` and
+    returns what it returns, whatever the Tq."""
     calls, fake = _search_calls(monkeypatch)
     fake.eager = lambda *a: "scores"
     for tq in (40, 288):
@@ -150,10 +150,6 @@ def test_gather_on_a_supported_index_routes_to_the_kernel(monkeypatch):
         for name in ("doclens", "doc_offsets", "codes"):
             assert call[name] is getattr(index, name)
         assert (call["num_documents"], call["td"]) == (index.num_documents, 24)
-        mxu = types.SimpleNamespace(doc_token_cap=24, codes_impl="mxu")
-        S._approx_codes_scores(index, s_masked, qmask, ids, mxu,
-                               queries=torch.randn(5, tq, 32))
-        assert len(calls) == 1
 
 
 @pytest.fixture(scope="module")
@@ -188,8 +184,8 @@ def with_rq(index):
 
 def test_staged_routes_that_reach_the_kernel(built_cpu, monkeypatch):
     """Through `search_batch` with a stand-in kernel: a staged "codes"
-    batch calls it once, with the batch's Tq; "cells", the "mxu" lowering,
-    an RQ index and the exact route never do."""
+    batch calls it once, with the batch's Tq; "cells", an RQ index and the
+    exact route never do."""
     index, queries = built_cpu
     calls, fake = _search_calls(monkeypatch)
     fake.eager = lambda s_t, qmask, ids, td: torch.zeros(ids.shape)
@@ -201,8 +197,6 @@ def test_staged_routes_that_reach_the_kernel(built_cpu, monkeypatch):
                    SearchParameters(top_k=10, mode="exact")):
         search_batch(index, queries, params)
     search_batch(with_rq(index), queries, codes)
-    monkeypatch.setenv("NEXT_PLAID_CODES_IMPL", "mxu")
-    search_batch(index, queries, codes)
     assert len(calls) == 1
 
 
@@ -327,14 +321,14 @@ def _keep_cut_ties(seen, nd_live):
 def test_staged_batches_match_the_eager_loop(built_cuda, cuda, monkeypatch):
     """Staged "codes" batches through the kernel return the eager lowering's
     answers up to ties at the prune cuts, with one launch a batch; the
-    exact, RQ, "cells" and "mxu" routes launch none."""
+    exact, RQ and "cells" routes launch none."""
     index, queries = built_cuda
     params = SearchParameters(approx_score="codes", **STAGED)
     seen = []
     route = S._approx_codes_scores
 
-    def recording(index_, s_masked, qmask, ids, shapes, queries=None):
-        out = route(index_, s_masked, qmask, ids, shapes, queries=queries)
+    def recording(index_, s_masked, qmask, ids, shapes):
+        out = route(index_, s_masked, qmask, ids, shapes)
         seen.append((ids, out, shapes.prune_keep))
         return out
 
@@ -352,7 +346,5 @@ def test_staged_batches_match_the_eager_loop(built_cuda, cuda, monkeypatch):
     search_batch(index, queries, SearchParameters(approx_score="cells", **STAGED))
     search_batch(with_rq(index), queries, params)
     search_batch(index.with_token_grid(dtype="bf16"), queries, SearchParameters(top_k=10))
-    monkeypatch.setenv("NEXT_PLAID_CODES_IMPL", "mxu")
-    search_batch(index, queries, params)
     torch.cuda.synchronize()
     assert A.approx_codes.launches == before + 3

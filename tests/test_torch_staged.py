@@ -32,6 +32,7 @@ from nextplaid_tpu_torch.index import (
 )
 from nextplaid_tpu_torch.index import search as TS
 from nextplaid_tpu_torch.ops.maxsim_kernel import maxsim_grid_scores
+from nextplaid_tpu_torch.utils.errors import SearchError
 
 RTOL, ATOL = 1e-5, 1e-4
 TIE = 1e-4
@@ -40,9 +41,11 @@ STAGED = dict(top_k=10, mode="staged", stage1_precision="highest")
 # Fields of PipelineShapes that decide which documents come back.
 DECIDING = (
     "nprobe", "posting_budget", "prune_keep", "prune_pool", "max_candidates",
-    "top_k", "doc_token_cap", "threshold", "approx_score", "codes_impl",
-    "candidate_scope", "overflow_policy", "stage1_precision", "nbits",
+    "top_k", "doc_token_cap", "threshold", "approx_score", "candidate_scope",
+    "overflow_policy", "stage1_precision", "nbits",
 )
+# Whether each `kernel` value takes the hand-written kernels on the CPU.
+KERNEL_CHOICE = {"auto": False, "pallas": True, "xla": False, "off": False}
 
 
 def _unit(x):
@@ -120,8 +123,7 @@ def _prune_both(built, s, jsh=None, tsh=None):
         built["ref"], s["jc"], s["jw"], jsh or s["jsh"], s_masked=s["js"],
         qmask=s["jm"], queries=s["jq"])
     tu, to, tmine = TS._prune_candidates(
-        built["arrays"], s["tc"], s["tw"], tsh or s["tsh"], s_masked=s["ts"],
-        qmask=s["tm"], queries=s["tq"])
+        built["arrays"], s["tc"], s["tw"], tsh or s["tsh"], s_masked=s["ts"], qmask=s["tm"])
     return (np.asarray(ju), int(jo), None if jmine is None else np.asarray(jmine),
             tu.numpy(), int(to), None if tmine is None else tmine.numpy())
 
@@ -197,18 +199,71 @@ def test_derive_matches_jax(built, source, case):
 
 def test_derive_codes_impl_and_rerank_kernel(built, monkeypatch):
     index = built["arrays"]
-    monkeypatch.setenv("NEXT_PLAID_CODES_IMPL", "mxu")
-    assert TS.PipelineShapes.derive(index, SearchParameters(), 8, 32).codes_impl == "mxu"
     # On the CPU only kernel="pallas" takes the kernel route (its plain
     # version); "xla"/"off" keep the scan, and the grid must fit the budget.
     flags = {
         kernel: TS.PipelineShapes.derive(index, SearchParameters(kernel=kernel), 8, 32).rerank_kernel
-        for kernel in ("auto", "pallas", "xla", "off")
+        for kernel in KERNEL_CHOICE
     }
-    assert flags == {"auto": False, "pallas": True, "xla": False, "off": False}
-    monkeypatch.setenv("NEXT_PLAID_RERANK_GRID_MB", "0")
+    assert flags == KERNEL_CHOICE
+    monkeypatch.setattr(TS, "RERANK_GRID_BYTES", 0)
     assert not TS.PipelineShapes.derive(
         index, SearchParameters(kernel="pallas"), 8, 32).rerank_kernel
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNEL_CHOICE))
+def test_derive_reads_no_environment(built, kernel, monkeypatch):
+    """The staged route's shapes follow the index, the parameters and the
+    batch alone: the JAX package's TPU-only settings change nothing."""
+    params = SearchParameters(kernel=kernel, approx_score="codes")
+    want = TS.PipelineShapes.derive(built["arrays"], params, 8, 32)
+    monkeypatch.setenv("NEXT_PLAID_CODES_IMPL", "mxu")
+    monkeypatch.setenv("NEXT_PLAID_RERANK_GRID_MB", "0")
+    assert TS.PipelineShapes.derive(built["arrays"], params, 8, 32) == want
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("kernel", sorted(KERNEL_CHOICE))
+def test_use_kernels_by_value_and_device(kernel, device):
+    """"pallas" forces the kernels, "auto" takes them on a CUDA index, "xla"
+    and "off" never do."""
+    want = kernel == "pallas" or (kernel == "auto" and device == "cuda")
+    assert TS._use_kernels(kernel, torch.device(device)) == want
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNEL_CHOICE))
+def test_kernel_choice_on_both_routes(built, kernel, monkeypatch):
+    """On the CPU the exact route over a pinned grid and staged stage 4 make
+    the same choice: the kernels for "pallas" alone."""
+    seen = {}
+    exact, pipeline = TS.exact_search_pipeline, TS.search_pipeline
+
+    def exact_spy(*args, use_kernel, **kwargs):
+        seen["exact"] = use_kernel
+        return exact(*args, use_kernel=use_kernel, **kwargs)
+
+    def pipeline_spy(index, queries, qmask, subset, shapes, **kwargs):
+        seen["staged"] = shapes.rerank_kernel
+        return pipeline(index, queries, qmask, subset, shapes, **kwargs)
+
+    monkeypatch.setattr(TS, "exact_search_pipeline", exact_spy)
+    monkeypatch.setattr(TS, "search_pipeline", pipeline_spy)
+    pinned = built["arrays"].with_token_grid(budget_mb=10_000, dtype="bf16")
+    queries = built["queries"][:4]
+    search_batch(pinned, queries, SearchParameters(kernel=kernel, top_k=5, mode="exact"))
+    search_batch(built["arrays"], queries, SearchParameters(kernel=kernel, **STAGED))
+    assert seen == {"exact": KERNEL_CHOICE[kernel], "staged": KERNEL_CHOICE[kernel]}
+
+
+@pytest.mark.parametrize("route", ["pinned", "unpinned", "staged"])
+def test_unknown_kernel_raises_at_dispatch(built, route):
+    index = built["arrays"]
+    if route == "pinned":
+        index = index.with_token_grid(budget_mb=10_000, dtype="bf16")
+    mode = "staged" if route == "staged" else "exact"
+    params = SearchParameters(kernel="cuda", top_k=5, mode=mode)
+    with pytest.raises(SearchError, match="auto, pallas, xla, off"):
+        search_batch_async(index, built["queries"][:2], params)
 
 
 # ---------------------------------------------------------------------------
@@ -281,23 +336,20 @@ def test_prune_cells_cut_matches_jax_modulo_ties(built, budget):
         _assert_sets_equal_modulo_ties(got, best, scores[q], keep)
 
 
-@pytest.mark.parametrize("impl", ["gather", "mxu"])
-def test_approx_codes_scores_match_jax(built, impl):
-    """Stage 3b on the same candidates. "gather" looks up f32 scores (1e-5);
-    "mxu" recomputes them from bf16-rounded centroids and queries in both
-    packages (f32 sums of exact products, 1e-4)."""
+def test_approx_codes_scores_match_jax(built):
+    """Stage 3b on the same candidates: both packages look up f32 scores
+    (1e-5)."""
     s = _stage12(built, dict(STAGED, approx_score="codes"))
-    jsh = dataclasses.replace(s["jsh"], codes_impl=impl, prune_pool=48)
-    tsh = dataclasses.replace(s["tsh"], codes_impl=impl, prune_pool=48)
+    jsh = dataclasses.replace(s["jsh"], prune_pool=48)
+    tsh = dataclasses.replace(s["tsh"], prune_pool=48)
     rng = np.random.default_rng(1)
     cand = rng.integers(0, NUM_DOCS, (12, 48))
     cand[:, -3:] = built["ref"].num_docs_padded - 1  # sentinel slots
     want = JS._approx_codes_scores(
         built["ref"], s["js"], s["jm"], jnp.asarray(cand, jnp.int32), jsh, queries=s["jq"])
     got = TS._approx_codes_scores(
-        built["arrays"], s["ts"], s["tm"], torch.from_numpy(cand), tsh, queries=s["tq"])
-    tol = 1e-5 if impl == "gather" else 1e-4
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
+        built["arrays"], s["ts"], s["tm"], torch.from_numpy(cand), tsh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     assert (got.numpy()[:, -3:] == 0).all()
 
 
@@ -312,7 +364,7 @@ def test_prune_codes_cut_matches_jax_modulo_ties(built):
     ju, _, jmine, tu, _, tmine = _prune_both(built, s)
     all_docs = torch.arange(NUM_DOCS)[None, :].repeat(12, 1)
     codes = TS._approx_codes_scores(
-        built["arrays"], s["ts"], s["tm"], all_docs, s["tsh"], queries=s["tq"]).numpy()
+        built["arrays"], s["ts"], s["tm"], all_docs, s["tsh"]).numpy()
     probed = np.isfinite(_cells_scores(
         built, s["tc"].numpy(), s["tw"].numpy(), s["tsh"].posting_budget))
     cut_somewhere = False
@@ -345,7 +397,7 @@ def test_explicit_max_candidates_truncates_union(built, approx):
     else:
         all_docs = torch.arange(NUM_DOCS)[None, :].repeat(12, 1)
         codes = TS._approx_codes_scores(
-            built["arrays"], s["ts"], s["tm"], all_docs, s["tsh"], queries=s["tq"]).numpy()
+            built["arrays"], s["ts"], s["tm"], all_docs, s["tsh"]).numpy()
         probed = np.isfinite(_cells_scores(
             built, s["tc"].numpy(), s["tw"].numpy(), s["tsh"].posting_budget))
         scores = np.where(probed, codes, -np.inf).max(axis=0)
@@ -399,14 +451,6 @@ def test_staged_search_matches_jax(built, approx, scope, source):
 ], ids=["nprobe2", "tight_budget_prune", "cells_nprobe16"])
 def test_staged_search_operating_points_match_jax(built, case):
     params = dict(STAGED, **case)
-    want = J.search_batch(built["ref"], built["queries"], J.SearchParameters(**params))
-    got = search_batch(built["arrays"], built["queries"], SearchParameters(**params))
-    _assert_same_topk(got, want)
-
-
-def test_staged_codes_mxu_matches_jax(built, monkeypatch):
-    monkeypatch.setenv("NEXT_PLAID_CODES_IMPL", "mxu")
-    params = dict(STAGED, approx_score="codes")
     want = J.search_batch(built["ref"], built["queries"], J.SearchParameters(**params))
     got = search_batch(built["arrays"], built["queries"], SearchParameters(**params))
     _assert_same_topk(got, want)
