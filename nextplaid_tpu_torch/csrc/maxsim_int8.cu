@@ -15,26 +15,32 @@
 // the per-doc max runs over the rows of the accumulator tile.
 //
 // Bound on the H100: operations for a batch, bytes for one query. At the
-// grid-only main path (2,048 query tokens against ~75.7M valid doc tokens,
-// d 128) one 64-query batch is 3.97e13 int8 operations, 20 ms at 1,979
-// TOP/s, against ~11 GB of grid (3.3 ms at 3.35 TB/s); one query (32
-// columns) is bound by those 3.3 ms. The design (maxsim_wgmma.cuh holds it,
-// shared with the bf16 kernel): wgmma m64nNk32 s8 x s8 -> s32 on 64-row doc
-// tiles, A and B from shared memory in the 128-byte swizzle (a d-128 row is
-// exactly one panel); a ring of tiles and their 64 scales filled by one
-// producer thread's TMA loads and handed over by mbarriers; two consumer
-// warpgroups on the same tiles, each with its own N <= 256 query-token
-// columns. At the int8 rate the tensor cores turn out ~7.7e12 dots a
-// second and the epilogue spends three instructions on each (an integer
-// add of the 1.5 * 2^23 bit pattern, one fma with the row's scale, which
-// gives exactly float(dot) * scale since |dot| < 2^22 and masks a
-// zero-scale row to -1e30 in the same fma, and one max), so the epilogue is
-// as long as the products: it runs in registers on the accumulator's
-// layout, and on this card it adds about two fifths to the kernel's time,
-// because it does not hide under the products (PERF.md has the measured
-// account). A doc's tiles stop after its last token with a positive scale
-// (a scan of its scales when the block starts); scale 0 stays the mask
-// inside a tile, and rows past td are zero-filled by TMA, scales included.
+// `lotte.int8.window2` cell (2,048 query tokens against the pinned LoTTE
+// grid [119,461, 224, 128], 19.1M valid tokens, d 128) one 64-query batch
+// is 1.00e13 int8 operations, 5.06 ms at 1,979 TOP/s, against 3.4 GB of
+// grid (1.0 ms at 3.35 TB/s); one query (32 columns) is bound by the bytes.
+// The design (maxsim_wgmma.cuh holds it, shared with the bf16 kernel):
+// wgmma m64nNk32 s8 x s8 -> s32 on 64-row doc tiles, A and B from shared
+// memory in the 128-byte swizzle (a d-128 row is exactly one panel); a ring
+// of tiles and their 64 scales filled by one producer thread's TMA loads
+// and handed over by mbarriers; two consumer warpgroups on the same tiles,
+// each with its own N <= 256 query-token columns. The epilogue spends three
+// instructions on each product (an integer add of the 1.5 * 2^23 bit
+// pattern, one fma with the row's scale, which gives exactly
+// float(dot) * scale since |dot| < 2^22 and masks a zero-scale row to -1e30
+// in the same fma, and one max), so it is as long as the products, and it
+// does not run under them: a warpgroup's one group in flight does not keep
+// the tensor cores busy, and 256 columns leave no registers for a second
+// accumulator (the header lists what was tried). What the kernel does
+// instead is keep each doc's end off the products: the 4 warps' fold and
+// the token sums run in the producer warpgroup's spare warps. At the
+// cell's shape (an H100 80GB HBM3 at 700 W) that takes the kernel from
+// 16.8 to 14.0 ms, 30.0 to 36.3% of its bound; its products alone take
+// 7.7 ms, with a wait a tile 10.1. One query, bound by the bytes, gains
+// 5% (0.853 -> 0.808 ms against [118,272, 160, 128]). A doc's tiles stop
+// after its last token with a positive scale (a scan of its scales when the
+// block starts); scale 0 stays the mask inside a tile, and rows past td are
+// zero-filled by TMA, scales included.
 //
 // Shapes: d 128 or 256 (one or two panels), any tq up to 256, td a multiple
 // of 8 (the scales' TMA map needs 16-byte row strides). The wrapper pads

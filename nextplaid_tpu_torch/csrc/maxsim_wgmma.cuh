@@ -1,5 +1,6 @@
 // Shared device and host code of the MaxSim kernels (maxsim_bf16.cu,
-// maxsim_int8.cu and the variant family maxsim_variants.cu): one kernel
+// maxsim_int8.cu, the variant family maxsim_variants.cu and the int8
+// dots-only probe maxsim_int8_probe.cu): one kernel
 // template for Hopper (sm_90a), instantiated for bf16 and for int8 token
 // grids. The served kernels take the default Policy; the variant family
 // (bf16 only) picks, at compile time, the mask input (doc lengths, an
@@ -38,16 +39,40 @@
 //     shuffle steps folds the 8 row groups, shared memory folds the 4
 //     warps, and the query's tokens are summed in f32 in token order;
 //   - at N 256 the consumers need about 200 registers, so the producer gives
-//     its registers up (setmaxnreg 40) and the consumers take 232.
+//     its registers up (setmaxnreg 40) and the consumers take 232;
+//   - int8 (kHandOff): a doc ends with the fold of each warp's rows in
+//     registers; the 4 warps' fold, the query-token scales and the token
+//     sums go to the producer warpgroup's spare warps, one a consumer
+//     warpgroup, through two alternating wmax buffers and mbarriers. A
+//     query's sum is a chain of tq dependent adds in token order; run by
+//     the consumers, it held their next products back ~1,700 cycles a doc
+//     at 256 columns. bf16 keeps the doc-by-doc walk, in which the
+//     consumers end each doc themselves.
+// Where the int8 time goes at the LoTTE cell's shape (64 queries x [119,461,
+// 224, 128], bound 5.06 ms; measured on an NVIDIA H100 80GB HBM3 at 700 W):
+// products alone 7.7 ms, with a wait_group 0 a tile 10.1, with the
+// scale-and-max and the doc-by-doc walk's doc end 16.8, with the hand-off
+// 14.0. The scale-and-max (3 instructions a product, as long as the
+// products) still runs while the tensor cores wait: one warpgroup's group
+// in flight does not keep them busy, and 256 columns leave no registers for
+// a second accumulator. At 32 and 64 columns (one to four queries, bound by
+// the bytes) the hand-off gains too: one query against a grid-only bucket
+// [118,272, 160, 128] 0.853 -> 0.808 ms, four 1.353 -> 1.295.
 // What was tried and did not pay on an H100 (PERF.md has the times): making
 // the two warpgroups take turns at the tensor cores with named barriers (a
 // barrier on a branch next to wgmma also makes ptxas serialize the
-// products); two accumulators of N/2 a warpgroup, one multiplied while the
-// other is reduced (m64n128 products are slower than m64n256); an integer
-// epilogue for int8. The bf16 kernel runs at the card's power limit; in the
-// int8 kernel the products and the reduction take turns rather than overlap.
+// products), or with mbarriers in warpgroup-uniform code, started in turns
+// (17.0 ms) or each started when the other's products end (17.2); two
+// accumulators of N/2 a warpgroup, one multiplied while the other is
+// reduced (m64n128 products are slower than m64n256; 20.0 ms); two
+// accumulators of consecutive tiles at N 128, which doubles the blocks that
+// read a tile (21.7 ms; their products alone 15.6); an integer epilogue, a
+// preset accumulator (20.4 ms) and the bias add as a multiply-add (16.9) for
+// int8; starting the next doc's first tile before the doc's fold (14.4
+// against 13.9 after it), or folding under it (15.3: spills). The bf16
+// kernel runs at the card's power limit.
 //
-// Build: included by the three sources; no separate compilation.
+// Build: included by the four sources; no separate compilation.
 
 #pragma once
 
@@ -363,16 +388,16 @@ __host__ __device__ inline Layout smem_layout(int n, int n_wg, int panels, int s
   off += stages * sub * (scales ? kTileRows * 2 : side);
   l.scratch = off;  // [n_wg][64 rows][n + pad] f32
   off += scratch ? n_wg * kTileRows * (n + kScratchPad) * 4 : 0;
-  l.wmax = off;  // [consumers][4 warps][n] f32
-  off += kConsumers * 4 * n * 4;
+  l.wmax = off;  // [consumers][4 warps][n] f32; int8: [2][consumers][4][n], by doc parity
+  off += kConsumers * 4 * n * 4 * (scales ? 2 : 1);
   l.colmax = off;  // [consumers][n] f32
   off += kConsumers * n * 4;
   l.qs = off;  // [consumers][n] f32 query-token scales
   off += scales ? kConsumers * n * 4 : 0;
   l.lens = off;
   off += kMaxDocsPerBlock * 4;
-  l.bars = off;  // full[kMaxStages], empty[kMaxStages], queries
-  off += (2 * kMaxStages + 1) * 8;
+  l.bars = off;  // full[kMaxStages], empty[kMaxStages], queries; int8: handed[4], finished[4]
+  off += (2 * kMaxStages + 1 + (scales ? 4 * kConsumers : 0)) * 8;
   l.total = off + 1024;  // slack to align the base
   return l;
 }
@@ -449,6 +474,19 @@ __device__ __forceinline__ void multiply_tile(typename T::Acc (&acc)[H], uint64_
   wgmma_commit();
 }
 
+// The scale-and-max operands of a thread's two rows (g and g + 8 of its
+// warp's 16) from their bf16 scales `tsc[0]` and `tsc[8]`: a positive scale
+// x gives (x, -1.5 * 2^23 * x); any other, a masked row, (0, -1e30).
+__device__ __forceinline__ void row_scales(const uint16_t* tsc, float (&sv)[2], float (&cv)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float x = __uint_as_float(static_cast<uint32_t>(tsc[8 * h]) << 16);
+    const bool ok = x > 0.0f;
+    sv[h] = ok ? x : 0.0f;
+    cv[h] = ok ? -kMagic * x : kNeg;
+  }
+}
+
 // Folds the accumulator (H registers: rows g and g + 8 of H / 2 columns)
 // into the running maxima rmax.
 // int8: int -> float through the 1.5 * 2^23 bit pattern, then one fma with
@@ -507,6 +545,43 @@ __device__ __forceinline__ void tile_max_added(const float (&acc)[H], float (&rm
   }
 }
 
+// Query q's score against an int8 doc from the 4 warps' folded maxima wmax
+// [4][N] and the query-token scales qs [N]: for each of its tq tokens (from
+// column c0) the max over the warps times the token's scale (0 where no row
+// of the doc is valid), summed in token order. Bit for bit the sum the
+// int8 consumers took before the hand-off: the product is rounded before
+// the add (__fmul_rn: they stored it to shared memory first), and the max
+// is exact in any order. Loads go four tokens at a time where the rows are
+// 16-byte aligned.
+template <int N>
+__device__ __forceinline__ float doc_score(const float* wmax, const float* qs, int c0, int tq) {
+  auto term = [](float w0, float w1, float w2, float w3, float q) {
+    const float m = fmaxf(fmaxf(w0, w1), fmaxf(w2, w3));
+    return __fmul_rn(m > 0.5f * kNeg ? m : 0.0f, q);
+  };
+  float sum = 0.0f;
+  int k = 0;
+  if ((tq & 3) == 0) {
+#pragma unroll 4
+    for (; k < tq; k += 4) {
+      const float4 w0 = *reinterpret_cast<const float4*>(wmax + c0 + k);
+      const float4 w1 = *reinterpret_cast<const float4*>(wmax + N + c0 + k);
+      const float4 w2 = *reinterpret_cast<const float4*>(wmax + 2 * N + c0 + k);
+      const float4 w3 = *reinterpret_cast<const float4*>(wmax + 3 * N + c0 + k);
+      const float4 q = *reinterpret_cast<const float4*>(qs + c0 + k);
+      sum += term(w0.x, w1.x, w2.x, w3.x, q.x);
+      sum += term(w0.y, w1.y, w2.y, w3.y, q.y);
+      sum += term(w0.z, w1.z, w2.z, w3.z, q.z);
+      sum += term(w0.w, w1.w, w2.w, w3.w, q.w);
+    }
+  }
+  for (; k < tq; ++k) {
+    const int c = c0 + k;
+    sum += term(wmax[c], wmax[N + c], wmax[2 * N + c], wmax[3 * N + c], qs[c]);
+  }
+  return sum;
+}
+
 template <class T, int N, class V = Served>
 __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
     maxsim_kernel(const __grid_constant__ CUtensorMap map_q,  // [q_n * tq, row]
@@ -522,8 +597,13 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
   constexpr int kScanCols = N >= 128 ? N / 128 : 1;  // columns a thread scans
   // Bytes of a tile's side input in the ring: its rows' scales or mask values.
   constexpr int kSide = T::kScales ? kTileRows * 2 : (kAdd ? kTileRows * 4 : 0);
-  static_assert(!T::kScales || (V::kMask == kLens && V::kReduce == kRegisters),
+  // The int8 instances hand each doc's end to the producer warpgroup's
+  // spare warps (the branches below say how); bf16 keeps the doc-by-doc
+  // walk.
+  constexpr bool kHandOff = T::kScales && V::kMask == kLens;
+  static_assert(!T::kScales || (V::kMask != kAdditive && V::kReduce == kRegisters),
                 "the int8 instance takes its scales as the mask and reduces in registers");
+  static_assert(!kHandOff || !V::kDocMajor, "the finishing warps write [q_n, nd] scores");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
@@ -532,6 +612,10 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
   const uint32_t full0 = smem_u32(sm + L.bars);
   const uint32_t empty0 = full0 + 8 * kMaxStages;
   const uint32_t bfull = empty0 + 8 * kMaxStages;
+  // int8: consumer warpgroup w's folded maxima in wmax buffer b are handed
+  // over (handed0 + 8 (2 w + b)) or finished with (finished0 + ...).
+  const uint32_t handed0 = bfull + 8;
+  const uint32_t finished0 = handed0 + 8 * 2 * kConsumers;
   const int tile_bytes = p.panels * kTilePanelBytes;  // one tile's rows in the ring
   const int b_panel_bytes = N * kPanelBytes;
 
@@ -573,6 +657,12 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
       mbar_init(empty0 + 8 * s, 4 * active);  // one arrival a consumer warp
     }
     mbar_init(bfull, 1);
+    if constexpr (T::kScales) {
+      for (int i = 0; i < 2 * kConsumers; ++i) {
+        mbar_init(handed0 + 8 * i, 128);  // every thread of the consumer warpgroup
+        mbar_init(finished0 + 8 * i, 1);  // the finishing warp's first lane
+      }
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -618,6 +708,39 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
           }
         }
       }
+    } else if constexpr (kHandOff) {
+      // The producer warpgroup's next warps finish the consumer warpgroups'
+      // docs, one warp each: the 4 warps' fold, the query-token scales and
+      // each query's sum in token order, whose chain of dependent adds held
+      // the consumers' next products back ~1,700 cycles a doc at the LoTTE
+      // cell's shape. A consumer warpgroup hands each doc's folded maxima
+      // over in one of two wmax and goes on to its next tile.
+      const int w = (threadIdx.x >> 5) - 4 * kConsumers - 1;
+      if (w >= 0 && w < active) {
+        const int q0 = (qg0 + w) * p.qpw;
+        const int nq = min(p.qpw, p.q_n - q0);
+        const float* wm0 = reinterpret_cast<const float*>(sm + L.wmax) + w * 4 * N;
+        const float* qs = reinterpret_cast<const float*>(sm + L.qs) + w * N;
+        float* const out_q = p.out + (long long)q0 * p.nd + doc0;  // [nq, nd] from here
+        int folds = 0;  // the consumer warpgroup's docs finished so far
+        for (int d = 0; d < ndocs; ++d) {
+          // A lane takes queries lane, lane + 32, ...: a warpgroup may own
+          // up to N of them (tq 1).
+          if (lens[d] == 0) {  // no valid row: the doc scores 0
+            for (int q = lane; q < nq; q += 32) out_q[(long long)q * p.nd + d] = 0.0f;
+            continue;
+          }
+          const int b = folds & 1;
+          mbar_wait(handed0 + 8 * (2 * w + b), (folds >> 1) & 1);
+          for (int q = lane; q < nq; q += 32) {
+            out_q[(long long)q * p.nd + d] =
+                doc_score<N>(wm0 + b * kConsumers * 4 * N, qs, q * p.tq, p.tq);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(finished0 + 8 * (2 * w + b));
+          ++folds;
+        }
+      }
     }
   } else if (wg < active) {
     // ---- consumer ----
@@ -631,9 +754,12 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
     float* wmax = reinterpret_cast<float*>(sm + L.wmax) + wg * 4 * N;  // [4][N]
     float* colmax = reinterpret_cast<float*>(sm + L.colmax) + wg * N;
     float* qs = reinterpret_cast<float*>(sm + L.qs) + wg * N;
-    // The score of query q0 + tid and doc doc0 + dl lands at out0[dl * out_step].
-    float* const out0 = V::kDocMajor ? p.out + (long long)doc0 * p.q_n + q0 + tid
-                                     : p.out + (long long)(q0 + tid) * p.nd + doc0;
+    // The score of query q0 + q and doc doc0 + dl lands at
+    // out0[q * q_step + dl * out_step]. A thread writes queries tid,
+    // tid + 128, ...: a warpgroup may own up to N of them (tq 1).
+    float* const out0 = V::kDocMajor ? p.out + (long long)doc0 * p.q_n + q0
+                                     : p.out + (long long)q0 * p.nd + doc0;
+    const long long q_step = V::kDocMajor ? 1 : p.nd;
     const long long out_step = V::kDocMajor ? p.q_n : 1;
     if constexpr (T::kScales) {
       for (int c = tid; c < N; c += 128) {
@@ -641,10 +767,13 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
       }
       group_sync(wg);
     }
-    // The next doc at or after d with a valid row; docs without one score 0.
+    // The next doc at or after d with a valid row; docs without one score 0
+    // (under the hand-off, the finishing warp writes that 0).
     auto next_doc = [&](int d) {
       while (d < ndocs && lens[d] == 0) {
-        if (tid < nq) out0[d * out_step] = 0.0f;
+        if constexpr (!kHandOff) {
+          for (int q = tid; q < nq; q += 128) out0[q * q_step + d * out_step] = 0.0f;
+        }
         ++d;
       }
       return d;
@@ -653,7 +782,6 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
     const uint64_t desc_b = make_desc(smem_u32(sm + L.b) + wg * p.panels * b_panel_bytes);
     const int b_panel_units = b_panel_bytes >> 4;
     const uint32_t ring0 = smem_u32(sm + L.ring);
-    constexpr float kLowest = T::kScales ? kNeg : -INFINITY;
 
     Acc acc[kAcc];
     int stage = 0, phase = 0;
@@ -701,22 +829,80 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
         colmax[c] = (wmax[c] + wmax[N + c]) + (wmax[2 * N + c] + wmax[3 * N + c]);
       }
       group_sync(wg);
-      if (tid < nq) {
-        const float* cm = colmax + tid * p.tq;
+      for (int q = tid; q < nq; q += 128) {
+        const float* cm = colmax + q * p.tq;
         float sum = 0.0f;
         for (int k = 0; k < p.tq; ++k) sum += cm[k];
-        for (int dl = 0; dl < ndocs; ++dl) out0[dl * out_step] = sum;
+        for (int dl = 0; dl < ndocs; ++dl) out0[q * q_step + dl * out_step] = sum;
+      }
+    } else if constexpr (kHandOff) {
+      // The products and the scale-and-max, tile by tile, each tile's
+      // products started at the end of the one before. A doc ends with the
+      // fold of each warp's rows in registers; the rest goes to the
+      // finishing warp. After the block's last doc a stale stage is
+      // multiplied and its result dropped, so every path has the same
+      // products in flight and no wgmma is started or waited for on a
+      // branch (ptxas would serialize them all). The arithmetic is the
+      // doc-by-doc walk's, in the same order.
+      float rmax[kCols];
+      int dl = next_doc(0);
+      int folds = 0;  // docs handed to the finishing warp
+      if (dl < ndocs) {
+        mbar_wait(full0 + 8 * stage, phase);
+        multiply_tile<T>(acc, make_desc(ring0 + stage * tile_bytes), desc_b, p.panels,
+                         b_panel_units);
+        for (;;) {
+          const int len = lens[dl];
+#pragma unroll
+          for (int i = 0; i < kCols; ++i) rmax[i] = kNeg;
+          for (int r0 = 0;;) {
+            // The products of the tile at r0 of doc dl, in `stage`, run.
+            float sv[2], cv[2];
+            row_scales(reinterpret_cast<const uint16_t*>(sm + L.sc) + stage * kTileRows +
+                           warp * 16 + g,
+                       sv, cv);
+            wgmma_wait<0>();
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // the stage is read
+            tile_max_scaled(acc, rmax, sv, cv);
+            if (++stage == p.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
+            r0 += kTileRows;
+            if (r0 >= len) break;
+            mbar_wait(full0 + 8 * stage, phase);
+            multiply_tile<T>(acc, make_desc(ring0 + stage * tile_bytes), desc_b, p.panels,
+                             b_panel_units);
+          }
+          // Fold each warp's rows and hand the doc to the finishing warp,
+          // in the wmax whose doc two back it has finished with.
+          fold_rows<kCols>(rmax, lane);
+          const int next = next_doc(dl + 1);
+          const int b = folds & 1;
+          if (folds >= 2) mbar_wait(finished0 + 8 * (2 * wg + b), ((folds >> 1) - 1) & 1);
+          store_folded<N>(rmax, wmax + b * kConsumers * 4 * N, warp, g, t4);
+          mbar_arrive(handed0 + 8 * (2 * wg + b));
+          ++folds;
+          if (next < ndocs) mbar_wait(full0 + 8 * stage, phase);
+          multiply_tile<T>(acc, make_desc(ring0 + stage * tile_bytes), desc_b, p.panels,
+                           b_panel_units);
+          if (next == ndocs) break;
+          dl = next;
+        }
+        wgmma_wait<0>();  // the stale stage's products, dropped
       }
     } else {
-      // Running maxima: kCols a thread on the accumulator's layout, or the
-      // kScanCols columns it scans in shared memory.
+      // The doc-by-doc walk (bf16). Running maxima: kCols a thread on the
+      // accumulator's layout, or the kScanCols columns it scans in shared
+      // memory.
       float rmax[kScan ? kScanCols : kCols];
       float* scratch = reinterpret_cast<float*>(sm + L.scratch) +
                        wg * kTileRows * (N + kScratchPad);  // [64][N + pad]
       for (int dl = next_doc(0); dl < ndocs; dl = next_doc(dl + 1)) {
         const int len = lens[dl];
 #pragma unroll
-        for (int i = 0; i < (kScan ? kScanCols : kCols); ++i) rmax[i] = kLowest;
+        for (int i = 0; i < (kScan ? kScanCols : kCols); ++i) rmax[i] = -INFINITY;
 
         for (int t = 0; t * kTileRows < len; t += V::kSub) {
           const int ns =
@@ -728,23 +914,7 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
             const bool last = s == ns - 1;       // the stage is read after this tile
             multiply_tile<T>(acc, make_desc(ring0 + slot * tile_bytes), desc_b, p.panels,
                              b_panel_units);
-            if constexpr (T::kScales) {
-              // The rows' scales, read before the tile is handed back.
-              const uint16_t* tsc = reinterpret_cast<const uint16_t*>(sm + L.sc) +
-                                    slot * kTileRows + warp * 16 + g;
-              float sv[2], cv[2];
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const float x = __uint_as_float(static_cast<uint32_t>(tsc[8 * h]) << 16);
-                const bool ok = x > 0.0f;
-                sv[h] = ok ? x : 0.0f;
-                cv[h] = ok ? -kMagic * x : kNeg;
-              }
-              wgmma_wait<0>();
-              __syncwarp();
-              if (last && lane == 0) mbar_arrive(empty0 + 8 * stage);  // the stage is read
-              tile_max_scaled(acc, rmax, sv, cv);
-            } else if constexpr (kScan) {
+            if constexpr (kScan) {
               // Stage the accumulator, then each thread scans its columns
               // over the tile's valid rows (mask values added).
               const float* tm = reinterpret_cast<const float*>(sm + L.sc) + slot * kTileRows;
@@ -808,17 +978,16 @@ __global__ void __launch_bounds__(kThreads, (N <= 64 ? 2 : 1))
           group_sync(wg);
           for (int c = tid; c < N; c += 128) {
             float m = fmaxf(fmaxf(wmax[c], wmax[N + c]), fmaxf(wmax[2 * N + c], wmax[3 * N + c]));
-            if constexpr (T::kScales) m = (m > 0.5f * kNeg ? m : 0.0f) * qs[c];
             if constexpr (kAdd) m = m > 0.5f * kNeg ? m : 0.0f;
             colmax[c] = m;
           }
         }
         group_sync(wg);
-        if (tid < nq) {
-          const float* cm = colmax + tid * p.tq;
+        for (int q = tid; q < nq; q += 128) {
+          const float* cm = colmax + q * p.tq;
           float sum = 0.0f;
           for (int k = 0; k < p.tq; ++k) sum += cm[k];
-          out0[dl * out_step] = sum;
+          out0[q * q_step + dl * out_step] = sum;
         }
       }
     }

@@ -18,7 +18,9 @@ warpgroups, the docs a block walks and the ring's depth within the shared
 memory a block may use.
 This module also builds the third source, csrc/maxsim_variants.cu (the
 variant sweep's kernel family on the same template; its wrapper is
-`ops.maxsim_variants`), and plans its launches (`plan_variant`).
+`ops.maxsim_variants`), and plans its launches (`plan_variant`); the fourth,
+csrc/maxsim_int8_probe.cu (the int8 kernel's dots-only probe), is built
+only by scripts/profile_torch_maxsim.py.
 
 bf16 layout contract (as the JAX package's, with doclens flat):
   queries_flat [Q*Tq, d] bf16, padded query tokens are zero rows, so they
@@ -71,13 +73,15 @@ SOURCE = CSRC / "maxsim_bf16.cu"
 SOURCE_INT8 = CSRC / "maxsim_int8.cu"
 SOURCE_VARIANTS = CSRC / "maxsim_variants.cu"  # wrapper: ops/maxsim_variants.py
 SOURCES = (SOURCE, SOURCE_INT8, SOURCE_VARIANTS)
+# The int8 kernel's dots-only probe: built only by scripts/profile_torch_maxsim.py.
+SOURCE_INT8_PROBE = CSRC / "maxsim_int8_probe.cu"
 # What a server launches: both MaxSim kernels, the staged route's union
 # grid (wrapper: ops/union_grid.py) and its stage-3b scores (wrapper:
 # ops/approx_codes.py).
 SERVED_SOURCES = (SOURCE, SOURCE_INT8, CSRC / "union_grid.cu", CSRC / "approx_codes.cu")
 HEADER_WGMMA = CSRC / "maxsim_wgmma.cuh"
 # Headers each source includes: their bytes are part of its build hash.
-HEADERS = {src: (HEADER_WGMMA,) for src in SOURCES}
+HEADERS = {src: (HEADER_WGMMA,) for src in (*SOURCES, SOURCE_INT8_PROBE)}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nextplaid_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -90,6 +94,10 @@ BF16_DIM_STEP = 64  # the bf16 kernel's dims are its multiples; others are padde
 INT8_DIMS = (128, 256)  # the int8 kernel's dims; others are padded
 # The launch plan's constants, as in csrc/maxsim_wgmma.cuh.
 WGMMA_COLS = (32, 64, 128, 256)  # query-token columns of one warpgroup
+# int8 instances of at least these columns walk 64 docs a block, which
+# spreads each block's start and its one dropped tile (maxsim_wgmma.cuh's
+# kHandOff walk) over more docs; the narrower ones, bound by bytes, keep 16.
+INT8_WIDE_COLS = 128
 CONSUMERS = 2  # consumer warpgroups of a block
 TILE_ROWS = 64
 PANEL_BYTES = 128
@@ -252,16 +260,17 @@ def smem_bytes(n: int, n_wg: int, panels: int, stages: int, scales: bool, sub: i
     `smem_layout`): the query columns, the tile ring of `sub` tiles a stage
     (with a tile's side input: 64 bf16 scales for int8, `side` bytes
     otherwise, 256 for the additive mask's f32), the shared-memory row
-    reduction's `scratch` of [n_wg][64][n + 8] f32, the per-warp and
-    per-column maxima (and the query scales for int8), the docs' lengths, the
-    mbarriers, 1,024 bytes to align."""
+    reduction's `scratch` of [n_wg][64][n + 8] f32, the per-warp maxima
+    (int8: two sets, by doc parity) and per-column maxima (and the query
+    scales for int8), the docs' lengths, the mbarriers (int8: 8 more for
+    the finishing warps), 1,024 bytes to align."""
     total = n_wg * panels * n * PANEL_BYTES
     total += stages * sub * panels * TILE_ROWS * PANEL_BYTES
     total += stages * sub * (TILE_ROWS * 2 if scales else side)
     total += n_wg * TILE_ROWS * (n + SCRATCH_PAD) * 4 if scratch else 0
-    total += CONSUMERS * 4 * n * 4 + CONSUMERS * n * 4
+    total += CONSUMERS * 4 * n * 4 * (2 if scales else 1) + CONSUMERS * n * 4
     total += CONSUMERS * n * 4 if scales else 0
-    total += MAX_DOCS_PER_BLOCK * 4 + (2 * MAX_STAGES + 1) * 8
+    total += MAX_DOCS_PER_BLOCK * 4 + (2 * MAX_STAGES + 1 + (4 * CONSUMERS if scales else 0)) * 8
     return total + 1024
 
 
@@ -297,15 +306,16 @@ def plan_launch(q_n: int, tq: int, nd: int, row_bytes: int, scales: bool) -> Lau
 
     A warpgroup owns n >= tq columns holding n // tq whole queries, a block
     one or two such groups, picked by `_pick_shape` (one query does not pay
-    for 512 columns). The docs a block walks start at 16 and halve until the
-    launch has four blocks an SM or one doc a block."""
+    for 512 columns). The docs a block walks start at 16 (int8 instances of
+    at least INT8_WIDE_COLS columns: 64) and halve until the launch has four
+    blocks an SM or one doc a block."""
     panels = row_bytes // PANEL_BYTES
     stage = panels * TILE_ROWS * PANEL_BYTES + (TILE_ROWS * 2 if scales else 0)
     n, n_wg, stages = _pick_shape(
         q_n, tq, row_bytes, stage, lambda n, n_wg: smem_bytes(n, n_wg, panels, 0, scales))
     qpw = n // tq
     n_qblocks = _ceil_div(_ceil_div(q_n, qpw), n_wg)
-    dpb = 16
+    dpb = MAX_DOCS_PER_BLOCK if scales and n >= INT8_WIDE_COLS else 16
     while dpb > 1 and n_qblocks * _ceil_div(nd, dpb) < 4 * SM_COUNT:
         dpb //= 2
     return LaunchPlan(n=n, n_wg=n_wg, qpw=qpw, dpb=dpb, stages=stages, panels=panels,

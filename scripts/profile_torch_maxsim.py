@@ -14,11 +14,20 @@ doc lengths, not on the values):
   - bf16, staged stage 4: 2,048 query tokens x [65536, 224, 128], doclens
     uniform 100-220, 8% of the rows empty;
   - bf16, the variant sweep's shape: 2,048 x [5184, 384, 128];
+  - int8, the `lotte.int8.window2` cell: 2,048 query tokens x the pinned
+    LoTTE grid [119461, 224, 128], doclens uniform 100-220 (bound 5.06 ms);
   - int8, one grid-only bucket: 64 queries and 1 query x [118272, 160, 128];
   - int8, SciFact pass: 10,240 x [5760, 320, 128].
 Each time stands beside its bound (the valid tokens' products at the card's
 peak, or the bytes at its memory rate) and the share of rows multiplied
 that lie past the doc's length (the cost of 64-row tiles).
+
+At the LoTTE cell's shape it also times the int8 dots-only probe
+(csrc/maxsim_int8_probe.cu) at the served plan, the products and feed
+alone with no wait inside the walk, beside the served kernel: the gap is
+what the schedule's waits and its scale-and-max cost. (The third time of
+the split, each tile's products waited for but no max taken, was 10.1 ms
+against 7.7 and 13.9 on an H100 80GB HBM3 at 700 W; PERF.md keeps it.)
 """
 
 from __future__ import annotations
@@ -68,6 +77,31 @@ def int8_inputs(device, q_n, nd, td, lens, seed):
     return qi8, qs, torch.cat(grids), torch.cat(scales), 32
 
 
+def int8_probe_ms(mk, a, reps):
+    """Device ms of the int8 dots-only probe (the products and feed alone)
+    at the served plan of the int8 inputs `a`."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(mk.build_library(mk.SOURCE_INT8_PROBE)))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.maxsim_int8_probe_scores.argtypes = [p, p, p, p, p] + [i] * 9 + [p]
+    lib.maxsim_int8_probe_error_string.restype = ctypes.c_char_p
+    q, qs, grid, scales, tq = a
+    q_n, (nd, td, d) = q.shape[0] // tq, grid.shape
+    plan = mk.plan_launch(q_n, tq, nd, d, scales=True)
+    out = torch.empty(q_n, nd, dtype=torch.float32, device=grid.device)
+
+    def launch():
+        err = lib.maxsim_int8_probe_scores(
+            q.data_ptr(), qs.data_ptr(), grid.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            q_n, tq, nd, td, d, plan.n, plan.n_wg, plan.dpb, plan.stages,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"int8 probe: {lib.maxsim_int8_probe_error_string(err)}")
+
+    return cs.time_ms(launch, reps)
+
+
 def clocks_under_load(fn, seconds=3.0):
     """Run `fn` back to back for `seconds` and sample the SM clock and the
     power draw meanwhile. Returns the samples as nvidia-smi prints them."""
@@ -111,7 +145,7 @@ def main() -> int:
     device = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    for src in (mk.SOURCE, mk.SOURCE_INT8):
+    for src in (mk.SOURCE, mk.SOURCE_INT8, mk.SOURCE_INT8_PROBE):
         lib = mk.build_library(src)
         log = lib.with_suffix(".log").read_text().splitlines()
         for i, ln in enumerate(log):
@@ -161,9 +195,11 @@ def main() -> int:
             print(f"clocks under load [{label}]: {clocks_under_load(lambda: bf16(*a))}", flush=True)
         del a
     bucket = rng.integers(130, 161, 118272)
+    lotte = rng.integers(100, 221, 119461)
     scifact8 = np.zeros(5760, np.int64)
     scifact8[:5183] = cs.make_doclens()
     for label, q_n, nd, td, lens in (
+        ("int8 LoTTE cell, 64 queries", 64, 119461, 224, lotte),
         ("int8 grid-only bucket, 64 queries", 64, 118272, 160, bucket),
         ("int8 grid-only bucket, 1 query", 1, 118272, 160, bucket),
         ("int8 SciFact pass", 320, 5760, 320, scifact8),
@@ -176,7 +212,12 @@ def main() -> int:
         bound, by = cs.maxsim_bound_int8(a[0], [a[2]], [a[3]], q_n)
         print(f"time [{label}]: {ms:.3f} ms, bound {bound:.3f} ms ({by}; {100 * bound / ms:.1f}% "
               f"of it), tile waste {100 * cs.tile_waste(np.minimum(lens, td)):.1f}%, plan {plan}", flush=True)
-        if args.clocks and label == "int8 SciFact pass":
+        if label == "int8 LoTTE cell, 64 queries":
+            probe_ms = int8_probe_ms(mk, a, args.reps)
+            print(f"int8 probe [{label}] products, no wait: {probe_ms:.3f} ms "
+                  f"({100 * bound / probe_ms:.1f}% of the bound); served kernel {ms:.3f} ms",
+                  flush=True)
+        if args.clocks and label in ("int8 SciFact pass", "int8 LoTTE cell, 64 queries"):
             print(f"clocks under load [{label}]: {clocks_under_load(lambda: int8(*a))}", flush=True)
         del a
     return 0

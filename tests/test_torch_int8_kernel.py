@@ -220,6 +220,66 @@ def test_layout_conversion_round_trip():
     assert torch.equal(back, grid) and torch.equal(back_s, scales)
 
 
+# --- the hand-off schedule (every int8 instance) ---------------------------
+
+# The `lotte.int8.window2` cell: 64 queries of 32 tokens against the pinned
+# LoTTE grid (Td 224, d 128, doc lengths uniform 100-220).
+CELL_Q, CELL_TQ, CELL_TD, CELL_D, CELL_ND = 64, 32, 224, 128, 119461
+
+
+def test_plan_launch_gives_the_cell_the_hand_off_instance():
+    """The cell's shape gets two warpgroups of 256 columns, 64 docs a block
+    (a wide instance) and a ring of 8 tiles."""
+    plan = maxsim_kernel.plan_launch(CELL_Q, CELL_TQ, CELL_ND, CELL_D, scales=True)
+    assert (plan.n, plan.n_wg, plan.qpw, plan.dpb, plan.stages) == (256, 2, 8, 64, 8)
+    assert plan.n >= maxsim_kernel.INT8_WIDE_COLS
+    assert plan.smem == maxsim_kernel.smem_bytes(256, 2, 1, 8, True)
+
+
+@pytest.mark.parametrize("nd,dpb", [(118272, 16), (4096, 4), (77, 1)])
+def test_plan_launch_keeps_one_query_narrow(nd, dpb):
+    """One query keeps the narrow instance and its plan: 32 columns, docs a
+    block from 16 down, and half an SM's shared memory, so that two blocks
+    share it."""
+    plan = maxsim_kernel.plan_launch(1, CELL_TQ, nd, CELL_D, scales=True)
+    assert (plan.n, plan.n_wg, plan.qpw, plan.dpb, plan.stages) == (32, 1, 1, dpb, 8)
+    assert plan.n < maxsim_kernel.INT8_WIDE_COLS
+    assert 2 * plan.smem <= maxsim_kernel.SMEM_LIMIT
+
+
+def _cell_inputs(seed, q_n, nd, lens, tq=CELL_TQ):
+    """int8 inputs at the cell's widths: queries whose last tokens (3 of
+    32; none below 4 tokens) are zero-padded (qscale 0), a doc-major grid
+    whose rows past each doc's length are zero with scale 0, and a few
+    zero-scale tokens inside docs."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-127, 128, (q_n, tq, CELL_D)).astype(np.int8)
+    qscale = rng.uniform(0.002, 0.01, (q_n, tq)).astype(np.float32)
+    pad = min(3, tq // 4)
+    q[:, tq - pad :] = 0
+    qscale[:, tq - pad :] = 0.0
+    grid = rng.integers(-127, 128, (nd, CELL_TD, CELL_D)).astype(np.int8)
+    scales = _bf16_values(rng.uniform(0.002, 0.01, (nd, CELL_TD)))
+    scales[::7, 5::31] = 0.0  # masked tokens inside docs
+    for i, n in enumerate(lens):
+        grid[i, n:] = 0
+        scales[i, n:] = 0.0
+    return q.reshape(q_n * tq, CELL_D), qscale.reshape(-1), grid, scales
+
+
+def _token_order_scores(queries, qscales, grid, scales, tq):
+    """qscale x max over valid rows of float(dot) x scale for every query
+    token and doc (the plain version's per-token terms: a query of one
+    token), summed over each query's tokens in token order in f32, as the
+    kernel sums them."""
+    terms = maxsim_grid_scores_int8i_reference(queries, qscales, grid, scales, tq=1)
+    terms = terms.view(-1, tq, grid.shape[0])
+    out = torch.zeros_like(terms[:, 0])
+    for t in range(tq):
+        out = out + terms[:, t]
+    return out
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -274,3 +334,67 @@ def test_per_token_values_are_exact_on_the_card(cuda):
     got = maxsim_grid_scores_int8i(*args, tq=1)
     want = maxsim_grid_scores_int8i_reference(*args, tq=1)
     assert torch.equal(got, want)
+
+
+def _edge_lens(rng, nd):
+    return rng.choice([0, 64, 65, 128, 129, 224], nd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "q_n,nd,lens",
+    [
+        (CELL_Q, 3001, "cell"),  # the cell: 64 queries, 2 x 256 columns a block
+        (CELL_Q, 1500, "edges"),  # no valid token; 64, 65, 128, 129, Td rows
+        (61, 2001, "cell"),  # the last warpgroup holds 5 queries
+        (36, 1001, "edges"),  # 5 query groups: the last block has one warpgroup
+        (6, 1999, "cell"),  # 128 columns a warpgroup
+        (4, 2001, "cell"),  # 64 columns a warpgroup, two blocks an SM
+        (1, 3001, "edges"),  # one query: 32 columns, one warpgroup
+    ],
+)
+def test_hand_off_schedule_sums_in_token_order(cuda, q_n, nd, lens):
+    """The hand-off schedule's scores equal, bit for bit, the token-order
+    f32 sums of the plain version's per-token terms, with a doc count that
+    is not a multiple of the docs a block walks."""
+    rng = np.random.default_rng(q_n + nd)
+    doc_lens = rng.integers(100, 221, nd) if lens == "cell" else _edge_lens(rng, nd)
+    q, qscale, grid, scales = _cell_inputs(nd, q_n, nd, doc_lens)
+    plan = maxsim_kernel.plan_launch(q_n, CELL_TQ, nd, CELL_D, scales=True)
+    assert nd % plan.dpb != 0
+    args = tuple(a.to(cuda) for a in _torch(q, qscale, grid, scales))
+    before = maxsim_grid_scores_int8i.launches
+    got = maxsim_grid_scores_int8i(*args, tq=CELL_TQ)
+    torch.cuda.synchronize()
+    assert maxsim_grid_scores_int8i.launches == before + 1
+    want = _token_order_scores(*args, tq=CELL_TQ)
+    assert torch.equal(got, want)
+    empty = torch.from_numpy(scales.max(axis=1) == 0).to(cuda)
+    if lens == "edges":
+        assert bool(empty.any()) and bool((got[:, empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "q_n,tq,n,qpw",
+    [
+        (200, 1, 128, 128),  # warpgroups of 128 and 72 one-token queries
+        (64, 3, 128, 42),  # 42 and 22 queries of 3 tokens
+        (600, 1, 256, 256),  # 256 one-token queries a warpgroup
+    ],
+)
+def test_hand_off_schedule_writes_every_query(cuda, q_n, tq, n, qpw):
+    """Where a warpgroup owns more than 32 queries, the finishing warp still
+    writes each one's score, and the 0 of each doc with no valid token, bit
+    for bit the token-order sums."""
+    nd = 4500  # 4 to 8 docs a block
+    rng = np.random.default_rng(q_n * tq)
+    q, qscale, grid, scales = _cell_inputs(q_n + tq, q_n, nd, _edge_lens(rng, nd), tq=tq)
+    plan = maxsim_kernel.plan_launch(q_n, tq, nd, CELL_D, scales=True)
+    assert (plan.n, plan.qpw) == (n, qpw)
+    args = tuple(a.to(cuda) for a in _torch(q, qscale, grid, scales))
+    got = maxsim_grid_scores_int8i(*args, tq=tq)
+    want = _token_order_scores(*args, tq=tq)
+    assert torch.equal(got, want)
+    empty = torch.from_numpy(scales.max(axis=1) == 0).to(cuda)
+    assert bool(empty.any()) and bool((got[:, empty] == 0).all())

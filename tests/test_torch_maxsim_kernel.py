@@ -149,6 +149,28 @@ def test_kernel_matches_plain_version(cuda, q_n, tq, nd, td, d):
 
 
 @pytest.mark.cuda
+def test_kernel_writes_every_query_of_a_warpgroup(cuda):
+    """600 one-token queries: two warpgroups of 256 columns, each owning 256
+    queries, more than its 128 threads. Every query's score is written, and
+    the 0 of each empty doc: rtol 1e-5, atol 1e-4."""
+    q_n, nd, td, d = 600, 2200, 40, 128  # 8 docs a block
+    rng = np.random.default_rng(600)
+    qflat = rng.standard_normal((q_n, d)).astype(np.float32)
+    grid = rng.standard_normal((nd, td, d)).astype(np.float32)
+    lens = rng.integers(0, td + 1, size=nd).astype(np.int32)
+    lens[[3, 50]] = 0
+    for i in range(nd):
+        grid[i, lens[i]:] = 0.0
+    plan = plan_launch(q_n, 1, nd, d * 2, scales=False)
+    assert (plan.n, plan.n_wg, plan.qpw, plan.dpb) == (256, 2, 256, 8)
+    args = (_bf16(qflat).to(cuda), _bf16(grid).to(cuda), torch.from_numpy(lens).to(cuda), 1)
+    got = maxsim_grid_scores(*args)
+    want = maxsim_grid_scores_reference(*args)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-4)
+    assert bool((got[:, torch.from_numpy(lens == 0).to(cuda)] == 0).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", chip_smoke.TILING_CASES, ids=TILING_IDS)
 def test_tiling_cases_kernel_matches_plain_version(cuda, case):
     """Kernel vs plain version on the card: 1e-4 x max|score|."""
@@ -184,7 +206,7 @@ def test_smem_bytes_match_the_kernels_layout(cuda, scales):
     [
         (320, 32, 5696, 256, False, 256, 2, 8, 16),   # SciFact bf16 pass
         (64, 32, 65536, 256, False, 256, 2, 8, 16),   # staged stage 4
-        (64, 32, 118272, 128, True, 256, 2, 8, 16),   # a grid-only bucket
+        (64, 32, 118272, 128, True, 256, 2, 8, 64),   # a grid-only bucket (int8 wide: 64 docs)
         (1, 32, 118272, 128, True, 32, 1, 1, 16),     # one query: 32 columns, not 512
         (2, 32, 4096, 128, True, 32, 2, 1, 4),        # 4,096 docs: 4 a block fills the SMs
         (3, 32, 4096, 256, False, 64, 2, 2, 4),
