@@ -49,10 +49,12 @@ port's paths:
      staged request, then `refresh_ivf` and staged recall.
   7. text to a searchable index, after the mutations and before the
      megascale build: first `ops.attention.varlen_attention`'s kernel
-     against its plain version on one packed forward at the rerank cell's
-     shapes (32 log-normal document lengths and one of 8,192, 12 x 64
-     heads, a global and a local layer with RoPE), at a bound that two
-     planted faults (a skipped key tile, a narrower band) must fail; then
+     against its plain version on one packed forward at the rerank cells'
+     shapes (32 log-normal document lengths and one of 8,192; 12 x 64
+     heads, a global and a local layer with RoPE, and jina-colbert-v2's
+     global layer at 16 x 64 heads, theta 20,000), at a bound that each
+     layer kind's planted fault (a skipped key tile, a narrower band) must
+     fail; then
      the ColBERT encoder at GTE-ModernColBERT-v1's widths (22 layers,
      hidden 768, random weights from seed 0, bf16), its packed forward held
      against the f32 padded forward (the JAX chain) on the CPU, and its
@@ -64,7 +66,13 @@ port's paths:
      at chunk 3 and resumed byte-equal to an uninterrupted build; load +
      bf16 pin; 320 encoded excerpt queries through `search_batch`, recall@10
      against the f32 oracle; the BERT family's throughput at
-     answerai-colbert-small's widths.
+     answerai-colbert-small's widths; then jina-colbert-v2 at its published
+     widths (24 rotary post-LN layers, hidden 1,024) from a model directory
+     by Jina's flash names through `Colbert(model_dir=...)`: one rerank
+     request's documents in packed forwards, its attention launches (set to
+     0 just before) one a layer of each forward and equal to the traced
+     `encode.attn_layers_global`, every pair global, against the plain f32
+     reference (tests/jina_colbert_reference.py) on the card.
   8. the REST service (this slice's path), after the encoder phase: the
      SciFact index as built (a copy kept before the mutations) with the
      server's config.json and metadata + FTS on every doc, the encoder at
@@ -1800,14 +1808,28 @@ ENC_TOPICS = 1024  # vocabulary topics a document draws most of its words from
 ENC_MIN_COS_BF16 = 0.999
 # Quantized against full-precision forward: tests/test_encoder.py:376's bound.
 ENC_MIN_COS_INT8 = 0.99
-# The attention kernel's check at the rerank cell's shapes
-# (benchmark/traffic/rerank32_long_w1.json): 32 documents of log-normal
-# lengths (median 1,024 tokens, sigma 1.0, clipped to 64-8,192) and one of
-# 8,192; 12 heads of 64, bf16; each layer kind with its half window and
-# RoPE theta. Held at ENC_MIN_COS_BF16.
+# The attention kernel's check at the rerank cells' shapes
+# (benchmark/traffic/rerank32_long_w1.json, rerank32_long_xlmr_w1.json): 32
+# documents of log-normal lengths (median 1,024 tokens, sigma 1.0, clipped
+# to 64-8,192) and one of 8,192; heads of 64, bf16. Each case is a layer
+# kind: its heads, half window and RoPE theta; GTE-ModernColBERT-v1's global
+# and local layers at 12 heads, jina-colbert-v2's global layer at 16. Held
+# at ENC_MIN_COS_BF16.
 ATTN_DOCS = 32
-ATTN_HEADS, ATTN_HEAD_DIM = 12, 64
-ATTN_LAYERS = (("global", None, 160_000.0), ("local", 64, 10_000.0))
+ATTN_HEAD_DIM = 64
+ATTN_LAYERS = (("global", 12, None, 160_000.0), ("local", 12, 64, 10_000.0),
+               ("jina", 16, None, 20_000.0))
+# jina-colbert-v2's published widths (Jina's rotary XLM-RoBERTa-large:
+# benchmark/encoders/jina_colbert_v2_long.json, whose rotary_emb_base is
+# assumed there), random weights from seed 0, run through
+# Colbert(model_dir=...) on one rerank request's documents.
+JINA_WIDTHS = dict(
+    model_type="xlm-roberta", vocab_size=250002, hidden_size=1024, num_hidden_layers=24,
+    num_attention_heads=16, intermediate_size=4096, max_position_embeddings=8194,
+    type_vocab_size=1, layer_norm_eps=1e-5, hidden_act="gelu",
+    position_embedding_type="rotary", rotary_emb_base=20_000.0,
+)
+JINA_DIM = 128
 
 
 class WhitespaceTokenizer:
@@ -1914,26 +1936,26 @@ def attention_lengths(seed=7):
 def attention_check(device):
     """ops/attention.py's kernel against its plain version
     (`varlen_attention_reference`) on one packed forward at the rerank
-    cell's shapes (ATTN_*), a global layer and a local one, RoPE on, with
+    cells' shapes (ATTN_*), each layer kind of ATTN_LAYERS, RoPE on, with
     the tile table the encoder passes: least cosine per token and head at
-    ENC_MIN_COS_BF16, and max |difference|. The bound must catch two
-    planted faults: the longest document's last key tile skipped (the
-    kernel over that document less its last BLOCK_N tokens, compared on the
-    rows it computed) and a band one narrower (half window 63 against 64).
-    Both versions timed (CUDA events) beside the bound, max(operations at
-    989 TFLOP/s, q, k, v and output bytes at the HBM rate). Sets the launch
-    counter to 0 first; returns the kernel's numbers for the kernels line."""
+    ENC_MIN_COS_BF16, and max |difference|. The bound must catch a planted
+    fault of each kind: on a global layer the longest document's last key
+    tile skipped (the kernel over that document less its last BLOCK_N
+    tokens, compared on the rows it computed), on a local one a band one
+    narrower (half window 63 against 64). Both versions timed (CUDA events)
+    beside the bound, max(operations at 989 TFLOP/s, q, k, v and output
+    bytes at the HBM rate). Sets the launch counter to 0 first; returns the
+    kernel's numbers for the kernels line: ModernBERT's global layer's
+    unprefixed, the local layer's as `local_*`, jina-colbert-v2's as
+    `jina_*`."""
     from nextplaid_tpu_torch.encoder.model import _rope_tables, packed_positions
     from nextplaid_tpu_torch.ops import attention as A
 
     A.varlen_attention.launches = 0
     lens = attention_lengths()
-    n, h, d = int(lens.sum()), ATTN_HEADS, ATTN_HEAD_DIM
+    n, d = int(lens.sum()), ATTN_HEAD_DIM
     cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32, device=device)
     pos = torch.from_numpy(packed_positions(lens)).to(device)
-    gen = torch.Generator(device=device).manual_seed(3)
-    q, k, v = (torch.randn(n, h, d, device=device, generator=gen).to(torch.bfloat16)
-               for _ in range(3))
     tiles = A.tile_table(cu, n)
     scale = 1.0 / math.sqrt(d)
     cu_cut = cu.clone()
@@ -1941,7 +1963,10 @@ def attention_check(device):
     tiles_cut = A.tile_table(cu_cut, n)
     cos = lambda a, b: per_token_cos(a.reshape(-1, d), b.reshape(-1, d))  # noqa: E731
     out = {}
-    for kind, half_window, theta in ATTN_LAYERS:
+    for kind, h, half_window, theta in ATTN_LAYERS:
+        gen = torch.Generator(device=device).manual_seed(3)
+        q, k, v = (torch.randn(n, h, d, device=device, generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
         rope = _rope_tables(pos, d, theta)
         got = A.varlen_attention(q, k, v, cu, half_window, scale, rope=rope, tiles=tiles)
         want = A.varlen_attention_reference(q, k, v, cu, half_window, scale, rope=rope)
@@ -1966,6 +1991,7 @@ def attention_check(device):
                                                        rope=rope, tiles=tiles), 20)
         plain_ms = time_ms(lambda: A.varlen_attention_reference(q, k, v, cu, half_window, scale,
                                                                 rope=rope), 2)
+        del q, k, v
         w = half_window
         pairs = int((lens * lens if w is None else
                      np.where(lens <= w + 1, lens * lens, lens * (2 * w + 1) - w * (w + 1))).sum())
@@ -1982,17 +2008,160 @@ def attention_check(device):
         out[kind] = {"least_cos": least, "max_abs_err": max_err, "fault_cos": fault_cos,
                      "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by}
-    del q, k, v
     torch.cuda.empty_cache()
-    g, loc = out["global"], out["local"]
-    return {"max_abs_err": max(g["max_abs_err"], loc["max_abs_err"]), "ms": g["ms"],
+    g, loc, jina = out["global"], out["local"], out["jina"]
+    return {"max_abs_err": max(c["max_abs_err"] for c in out.values()), "ms": g["ms"],
             "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
             "least_cos": g["least_cos"], "fault_skipped_tile_cos": g["fault_cos"],
             "local_least_cos": loc["least_cos"], "local_max_abs_err": loc["max_abs_err"],
             "fault_narrow_band_cos": loc["fault_cos"], "local_ms": loc["ms"],
             "local_plain_ms": loc["plain_ms"], "local_bound_ms": loc["bound_ms"],
-            "local_bound_by": loc["bound_by"], "tokens": n, "documents": len(lens),
+            "local_bound_by": loc["bound_by"], "jina_least_cos": jina["least_cos"],
+            "jina_max_abs_err": jina["max_abs_err"],
+            "fault_jina_skipped_tile_cos": jina["fault_cos"], "jina_ms": jina["ms"],
+            "jina_plain_ms": jina["plain_ms"], "jina_bound_ms": jina["bound_ms"],
+            "jina_bound_by": jina["bound_by"], "tokens": n, "documents": len(lens),
             "check_launches": A.varlen_attention.launches}
+
+
+def jina_model_dir(path, widths=JINA_WIDTHS, dim=JINA_DIM, device="cpu", seed=0):
+    """A model directory `Colbert(model_dir=...)` loads for the rotary
+    XLM-RoBERTa family: config.json (`widths`) and model.safetensors by the
+    names of Jina's flash implementation under `roberta.`, the projection
+    [dim, hidden] as `linear.weight`. Random float32 weights from `seed`,
+    drawn on `device`: linear layers normal with variance 1/fan_in, biases
+    0.1 normal, LayerNorm scales 1 + 0.1 normal, embeddings standard
+    normal."""
+    from safetensors.torch import save_file
+
+    h, ff = widths["hidden_size"], widths["intermediate_size"]
+    shapes = {"embeddings.word_embeddings.weight": (widths["vocab_size"], h),
+              "embeddings.token_type_embeddings.weight": (widths["type_vocab_size"], h),
+              "emb_ln.weight": (h,), "emb_ln.bias": (h,)}
+    for i in range(widths["num_hidden_layers"]):
+        b = f"encoder.layers.{i}."
+        for name, shape in (("mixer.Wqkv", (3 * h, h)), ("mixer.out_proj", (h, h)),
+                            ("mlp.fc1", (ff, h)), ("mlp.fc2", (h, ff))):
+            shapes[b + name + ".weight"], shapes[b + name + ".bias"] = shape, shape[:1]
+        for norm in ("norm1", "norm2"):
+            shapes[b + norm + ".weight"] = shapes[b + norm + ".bias"] = (h,)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    weights = {}
+    for name, shape in shapes.items():
+        w = torch.randn(shape, generator=gen, device=device)
+        if len(shape) == 1:  # a bias, or a LayerNorm's scale (".weight") or bias
+            w = 0.1 * w + (1.0 if name.endswith(".weight") else 0.0)
+        elif "embeddings." not in name:
+            w /= math.sqrt(shape[1])
+        weights["roberta." + name] = w.cpu()
+    weights["linear.weight"] = (torch.randn((dim, h), generator=gen, device=device)
+                                / math.sqrt(h)).cpu()
+    os.makedirs(path, exist_ok=True)
+    save_file(weights, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(widths, f)
+    return path
+
+
+def jina_texts(lens, n_words, seed=5):
+    """Texts of "w<i>" words, a "." every 20th, that tokenize (with [CLS],
+    the document marker and [SEP]) to rows of `lens` tokens."""
+    rng = np.random.default_rng(seed)
+    texts = []
+    for n in lens:
+        words = [f"w{i}" for i in rng.integers(0, n_words, int(n) - 3)]
+        texts.append(" ".join(w if j % 20 != 19 else "." for j, w in enumerate(words)))
+    return texts
+
+
+def jina_check(device, widths=JINA_WIDTHS, dim=JINA_DIM, work_dir=WORK_DIR):
+    """jina-colbert-v2 (the rotary, post-LN BERT family) on its served path:
+    a model directory at `widths` loaded by `Colbert(model_dir=...)`, one
+    rerank request's documents (`attention_lengths`, bf16) through
+    `encode_documents` with tracing on and the attention kernel's launch
+    counter set to 0 just before. The launches must be one a layer of each
+    packed forward and equal the forwards' `encode.attn_layers_global`,
+    every pair global (`encode.attn_pairs_global` = layers x sum L^2,
+    `encode.attn_pairs_local` 0), with `encode.prepare` spans and, on the
+    card, an `encode.forward` span a forward; each document's embeddings
+    (skiplist rows dropped) against the plain float32 reference
+    (tests/jina_colbert_reference.py) on `device` at ENC_MIN_COS_BF16.
+    Returns its numbers for the kernels line."""
+    from nextplaid_tpu_torch.encoder import Colbert
+    from nextplaid_tpu_torch.ops import attention as A
+    from nextplaid_tpu_torch.utils import trace
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from jina_colbert_reference import JinaColbertReference
+
+    path = jina_model_dir(os.path.join(work_dir, "jina"), widths, dim, device)
+    tok = WhitespaceTokenizer(widths["vocab_size"])
+    lens = attention_lengths()
+    texts = jina_texts(lens, tok.n_words)
+    enc = Colbert(path, config=colbert_config(tok, dim), tokenizer=tok, batch_size=ATTN_DOCS,
+                  document_length=int(lens.max()), device=device)
+    rows = enc._rows(texts, is_query=False)
+    before = A.varlen_attention.launches
+    enc.encode_documents(texts[:2])  # warm-up
+    warm_launches = A.varlen_attention.launches - before
+    layers = widths["num_hidden_layers"]
+    A.varlen_attention.launches = 0
+    with trace.recording(), trace.batch_scope() as batch:
+        t0 = time.perf_counter()
+        embs = enc.encode_documents(texts)
+        encode_s = time.perf_counter() - t0
+        launches = A.varlen_attention.launches
+        recs = [r for r in trace.records() if r.batch == batch]
+    counts = {}
+    for r in recs:
+        if r.kind == "count":
+            counts.setdefault(r.name, []).append(r.value)
+    forwards = len(counts.get("encode.attn_layers_global", []))
+    forward_ms = [r.value for r in recs if r.kind == "device" and r.name == "encode.forward"]
+    prepared = any(r.kind == "span" and r.name == "encode.prepare" for r in recs)
+    if (forwards == 0 or launches != layers * forwards
+            or sum(counts["encode.attn_layers_global"]) != launches):
+        raise AssertionError(f"jina-colbert-v2: {launches} attention launches in {forwards} "
+                             f"packed forwards of {layers} layers, encode.attn_layers_global "
+                             f"{counts.get('encode.attn_layers_global')}")
+    row_lens = np.asarray([len(r) for r in rows], np.int64)
+    if (list(row_lens) != list(lens) or sum(counts["encode.attn_pairs_global"])
+            != layers * int((row_lens * row_lens).sum())
+            or any(counts["encode.attn_pairs_local"]) or not prepared
+            or len(forward_ms) != (forwards if torch.device(device).type == "cuda" else 0)):
+        raise AssertionError(f"jina-colbert-v2: rows of {row_lens.tolist()} tokens, counters "
+                             f"{counts}, {len(forward_ms)} encode.forward device spans, "
+                             f"encode.prepare recorded: {prepared}")
+    skip = torch.tensor(sorted(enc.skiplist_ids))
+    del enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    ref = JinaColbertReference.from_dir(path, device)
+    try:
+        least = min(per_token_cos(torch.from_numpy(e),
+                                  ref.encode(r)[~torch.isin(torch.tensor(r), skip)].cpu())
+                    for r, e in zip(rows, embs))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"encoder [jina-colbert-v2 widths, {layers} rotary post-LN layers, hidden "
+          f"{widths['hidden_size']}, {widths['num_attention_heads']} heads, random weights, "
+          f"Colbert(model_dir=...)]: {len(rows)} documents, {int(row_lens.sum())} tokens in "
+          f"{forwards} packed forward(s), {1e3 * encode_s:.1f} ms (encode.forward "
+          f"{sum(forward_ms):.1f} ms on the card); attention kernel launches "
+          f"{launches} (encode.attn_layers_global {counts['encode.attn_layers_global']}); least "
+          f"per-token cosine card bf16 vs plain f32 {least:.6f} (bound {ENC_MIN_COS_BF16})",
+          flush=True)
+    if not least >= ENC_MIN_COS_BF16:
+        raise AssertionError(f"jina-colbert-v2 on the card against its plain version: least "
+                             f"cosine {least} < {ENC_MIN_COS_BF16}")
+    return {"jina_launches": warm_launches + launches, "jina_forward_launches": launches,
+            "jina_forwards": forwards,
+            "jina_encoder_least_cos": least, "jina_encode_ms": 1e3 * encode_s,
+            "jina_forward_ms": sum(forward_ms)}
 
 
 def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BERT_WIDTHS,
@@ -2004,11 +2173,12 @@ def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BE
     corpus encoded, a streamed build interrupted and resumed (byte-equal to
     an uninterrupted one, written chunks skipped, another nbits refused),
     load + bf16 pin, encoded queries searched through the bf16 kernel with
-    recall@10 against the f32 oracle; then the BERT family's throughput.
+    recall@10 against the f32 oracle; then the BERT family's throughput;
+    then jina-colbert-v2 through `Colbert(model_dir=...)` (`jina_check`).
     Returns the bf16 kernel's launches in the phase and its largest
     difference from the plain version on the encoded grid, and the
-    attention kernel's numbers (`attention_check`'s, with the phase's
-    launches)."""
+    attention kernel's numbers (`attention_check`'s and `jina_check`'s,
+    with the phase's launches)."""
     from nextplaid_tpu_torch.encoder import BackboneConfig, Colbert, ColbertModel, init_random_params
     from nextplaid_tpu_torch.encoder.model import quantize_dense_params
     from nextplaid_tpu_torch.index import (
@@ -2251,8 +2421,12 @@ def encoder_phase(device, mk, n_docs=ENC_DOCS, widths=GTE_WIDTHS, bert_widths=BE
         del benc
         gc.collect()
         torch.cuda.empty_cache()
-        attention.update(launches=varlen_attention.launches, forward_launches=attn_launches,
-                         corpus_launches=corpus_launches)
+
+        # jina-colbert-v2, the rotary post-LN BERT family, packed.
+        launches_so_far = varlen_attention.launches
+        jina = jina_check(device)
+        attention.update(launches=launches_so_far + jina["jina_launches"],
+                         forward_launches=attn_launches, corpus_launches=corpus_launches, **jina)
         return {"encoder_launches": launches, "encoder_max_abs_err": max_err}, attention
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -4841,9 +5015,10 @@ def main() -> int:
     # phase's. The union grid kernel's are the staged path's and the RQ
     # phase's (RQ and flat control); its check and times are the staged
     # stage-4 shape's, the rq_* keys the RQ one's. The attention kernel's
-    # are the encoder phase's, its check at the rerank cell's shapes
-    # included; its check and times are that check's global layer's, the
-    # local_* keys the local layer's. The stage-3b kernel's are the staged
+    # are the encoder phase's, its check at the rerank cells' shapes and
+    # jina-colbert-v2's request included; its check and times are that
+    # check's ModernBERT global layer's, the local_* keys the local layer's,
+    # the jina_* keys jina-colbert-v2's global layer's and request's. The stage-3b kernel's are the staged
     # path's and the RQ phase's flat control's ("codes" points); its check
     # and times are the flat control's at the LoTTE staged cell's operating
     # point, the staged_* keys the staged path's at "quality".

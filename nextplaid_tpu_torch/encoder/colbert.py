@@ -12,22 +12,25 @@ PyTorch counterpart of `nextplaid_tpu.encoder.colbert` (next-plaid-onnx's
     embeddings are dropped from the output (lib.rs:2214-2240);
   - optional hierarchical token pooling (pooling.py).
 
-BERT's shapes are the JAX package's: lengths round up to a multiple of 32
-and batches to a power of two (rows repeated), so both packages run the
-same [batch, length] forwards on the same texts. ModernBERT runs packed,
-as HF ModernBERT's unpadded path does: a forward's live tokens laid end to
-end with their documents' bounds (`ColbertModel.forward_packed`), and
-forwards formed by tokens: consecutive texts of the length sort while they
-hold at most batch_size x document_length (queries: x query_length) live
-tokens, the size of a padded forward at the config's full length.
+BERT with absolute positions runs the JAX package's shapes: lengths round
+up to a multiple of 32 and batches to a power of two (rows repeated), so
+both packages run the same [batch, length] forwards on the same texts. The
+rotary families (ModernBERT, Jina's XLM-RoBERTa) run packed, as HF
+ModernBERT's unpadded path does: a forward's live tokens laid end to end
+with their documents' bounds (`ColbertModel.forward_packed`), and forwards
+formed by tokens: consecutive texts of the length sort while they hold at
+most batch_size x document_length (queries: x query_length) live tokens,
+the size of a padded forward at the config's full length.
 
 With tracing on (`utils.trace`), each call records host spans
 `encode.prepare` (tokenization and packing), the device span
 `encode.forward` of each forward, and its counters `encode.live_tokens`,
-`encode.token_slots`, `encode.attn_pairs_global` and
-`encode.attn_pairs_local` (query-key pairs within one document, summed
-over the forward's global or local layers, per head), keyed to the
-caller's `trace.batch_scope` or a fresh batch id a call.
+`encode.token_slots`, and for a packed forward `encode.attn_pairs_global`
+and `encode.attn_pairs_local` (query-key pairs within one document, summed
+over the forward's global or local layers, per head) and
+`encode.attn_layers_global` (its global layers, one attention launch
+each), counted from the layers' own kinds (`BackboneConfig.layer_windows`);
+all keyed to the caller's `trace.batch_scope` or a fresh batch id a call.
 
 Forwards are queued on the card's current stream without waiting:
 `pipeline_depth` of them are in flight at once, each read back by a
@@ -342,8 +345,9 @@ class Colbert:
 
     @property
     def _packed(self) -> bool:
-        """ModernBERT runs packed forwards; BERT runs padded ones."""
-        return self.backbone_config.model_type == "modernbert"
+        """The rotary families run packed forwards; BERT with absolute
+        positions runs padded ones."""
+        return self.backbone_config.rotary
 
     def _readback(self, emb: torch.Tensor, n: int, timing, tr: _Trace) -> _Pending:
         """Queue the copy of a forward's first `n` rows to the host."""
@@ -377,16 +381,16 @@ class Colbert:
         return self._readback(emb, n, timing, tr)
 
     def _count_packed(self, lens: np.ndarray, batch) -> None:
-        cfg = self.backbone_config
-        n_global = len(range(0, cfg.num_hidden_layers, cfg.global_attn_every_n_layers))
-        w = cfg.local_attention // 2
-        band = np.where(lens <= w + 1, lens * lens, lens * (2 * w + 1) - w * (w + 1))
+        windows = self.backbone_config.layer_windows()
+        n_global = sum(w is None for w in windows)
+        local = sum(int(np.where(lens <= w + 1, lens * lens, lens * (2 * w + 1) - w * (w + 1)).sum())
+                    for w in windows if w is not None)
         n = int(lens.sum())
         trace.count("encode.live_tokens", n, batch)
         trace.count("encode.token_slots", n, batch)
         trace.count("encode.attn_pairs_global", n_global * int((lens * lens).sum()), batch)
-        trace.count("encode.attn_pairs_local",
-                    (cfg.num_hidden_layers - n_global) * int(band.sum()), batch)
+        trace.count("encode.attn_pairs_local", local, batch)
+        trace.count("encode.attn_layers_global", n_global, batch)
 
     def _dispatch_packed(self, rows: List[List[int]], tr: _Trace) -> _Pending:
         """Queue one packed forward of `rows` and its readback, without

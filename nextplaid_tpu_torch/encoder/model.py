@@ -1,25 +1,29 @@
 """ColBERT encoder as `torch.nn`: transformer backbone + projection + L2 norm.
 
 PyTorch counterpart of `nextplaid_tpu.encoder.model` (next-plaid-onnx's
-exported graph: backbone -> Dense(dim, no bias) -> normalize). Two backbones:
-  - BERT (post-LayerNorm, learned positions): answerai-colbert-small,
-    colbert-v2 style checkpoints;
+exported graph: backbone -> Dense(dim, no bias) -> normalize). Two backbone
+families:
+  - BERT (post-LayerNorm, biased dense layers, every layer global), with
+    learned absolute positions: answerai-colbert-small, colbert-v2 style
+    checkpoints; or with rotary positions on every layer and a fused Q, K,
+    V (`position_embedding_type: "rotary"`): Jina's XLM-RoBERTa,
+    jina-colbert-v2;
   - ModernBERT (pre-LayerNorm, RoPE, GeGLU, alternating local/global
     attention): GTE-ModernColBERT-v1.
 
 The JAX package computes all of it in plain XLA, so here it is plain PyTorch
 ops: `torch.matmul` for the dense layers and attention, `torch._int_mm` for
-the int8 products of the quantized mode; but for ModernBERT's attention on
-the card, which is one kernel a layer (`ops.attention.varlen_attention`)
-over a packed forward. Two layouts of one ModernBERT layer stack:
+the int8 products of the quantized mode; but for attention on the card in a
+packed forward, which is one kernel a layer (`ops.attention.varlen_attention`).
+Every layer takes one of two layouts of its tokens:
   - padded [B, L] (`forward`; `_Padded`): the JAX chain below, dense
     [B, H, L, L] scores with a mask bias, on any device; what the parity
     tests against the JAX package hold;
   - packed [N] live tokens with the documents' bounds (`forward_packed`;
-    `_Packed`), as HF ModernBERT's unpadded path: RoPE positions restart
-    at 0 in each document, attention never crosses one, the window is a
-    band, and nothing of [L, L] is built. The encoder runs ModernBERT
-    packed everywhere.
+    `_Packed`), as HF ModernBERT's unpadded path: positions restart at 0
+    in each document, attention never crosses one, a window is a band, and
+    nothing of [L, L] is built. The encoder runs the rotary families
+    packed everywhere; BERT with absolute positions runs padded.
 The dtype chain is the JAX package's, step by step:
   - a backbone dense layer casts its input and weights to the compute dtype
     and returns that dtype (`nn.Dense(dtype=...)`); weights are held in the
@@ -36,12 +40,15 @@ The dtype chain is the JAX package's, step by step:
 Parameter names are the JAX package's Flax tree flattened with dots
 (`backbone.layer_0.attention.query.kernel`), kernels laid out [in, out], so
 `params_from_jax` carries a Flax tree across unchanged and `load_params`
-maps HF checkpoints by the same names. Weights are a plain `state_dict`.
+maps HF checkpoints by the same names. The rotary BERT family, which the
+JAX package does not have, names its fused projection
+`backbone.layer_0.attention.Wqkv.kernel`. Weights are a plain `state_dict`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 from dataclasses import dataclass
@@ -62,7 +69,7 @@ from nextplaid_tpu_torch.utils.errors import EncodingError
 class BackboneConfig:
     """Union of the fields we need from HF `config.json` for both families."""
 
-    model_type: str = "bert"  # "bert" | "modernbert"
+    model_type: str = "bert"  # "bert" | "xlm-roberta" | "modernbert"
     vocab_size: int = 30522
     hidden_size: int = 768
     num_hidden_layers: int = 12
@@ -83,6 +90,10 @@ class BackboneConfig:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "BackboneConfig":
+        """The config of `d`'s family: `RotaryBertConfig` where
+        `position_embedding_type` is "rotary", else this class."""
+        if d.get("position_embedding_type") == "rotary":
+            cls = RotaryBertConfig
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
 
@@ -93,6 +104,38 @@ class BackboneConfig:
             raise EncodingError(f"config.json not found in {model_dir}")
         with open(p) as f:
             return cls.from_dict(json.load(f))
+
+    @property
+    def rotary(self) -> bool:
+        """Rotary positions: ModernBERT's, and `RotaryBertConfig`'s."""
+        return self.model_type == "modernbert"
+
+    def layer_windows(self) -> tuple:
+        """Each layer's attention window as the largest |i - j| it lets a
+        query reach, None on a global layer: ModernBERT's every
+        `global_attn_every_n_layers`-th layer from 0 is global, the rest
+        `local_attention` wide; every BERT-family layer is global."""
+        n = self.num_hidden_layers
+        if self.model_type != "modernbert":
+            return (None,) * n
+        return tuple(None if i % self.global_attn_every_n_layers == 0
+                     else self.local_attention // 2 for i in range(n))
+
+
+@dataclass
+class RotaryBertConfig(BackboneConfig):
+    """The BERT family with rotary positions on every layer and no position
+    table: Jina's XLM-RoBERTa (jina-colbert-v2), whose config.json says
+    `position_embedding_type: "rotary"` and gives `rotary_emb_base`. A
+    class of its own, so that the BERT and ModernBERT configs keep the JAX
+    package's fields."""
+
+    position_embedding_type: str = "rotary"
+    rotary_emb_base: float = 10_000.0
+
+    @property
+    def rotary(self) -> bool:
+        return True
 
 
 def _act(name: str):
@@ -235,87 +278,23 @@ def _attend(q, k, v, bias):
 
 
 # ---------------------------------------------------------------------------
-# BERT backbone
+# Layouts: how a layer's attention sees its tokens (padded or packed)
 # ---------------------------------------------------------------------------
 
 
-class BertSelfAttention(nn.Module):
-    def __init__(self, cfg: BackboneConfig, dtype, quantized, device=None):
-        super().__init__()
-        self.cfg = cfg
-        h = cfg.hidden_size
-        for name in ("query", "key", "value", "output"):
-            self.add_module(name, _dense(quantized, h, h, dtype, device=device))
-
-    def forward(self, hidden, bias):
-        cfg = self.cfg
-        B, L, _ = hidden.shape
-        split = lambda x: x.reshape(  # noqa: E731
-            B, L, cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads
-        )
-        ctx = _attend(
-            split(self.query(hidden)), split(self.key(hidden)),
-            split(self.value(hidden)), bias,
-        )
-        return self.output(ctx)
-
-
-class BertLayer(nn.Module):
-    def __init__(self, cfg: BackboneConfig, dtype, quantized, device=None):
-        super().__init__()
-        self.act = _act(cfg.hidden_act)
-        h, eps = cfg.hidden_size, cfg.layer_norm_eps
-        self.attention = BertSelfAttention(cfg, dtype, quantized, device)
-        self.attention_norm = LayerNorm(h, eps, device=device)
-        self.intermediate = _dense(quantized, h, cfg.intermediate_size, dtype, device=device)
-        self.output = _dense(quantized, cfg.intermediate_size, h, dtype, device=device)
-        self.output_norm = LayerNorm(h, eps, device=device)
-
-    def forward(self, hidden, bias):
-        hidden = self.attention_norm(hidden + self.attention(hidden, bias))
-        mlp = self.output(self.act(self.intermediate(hidden)))
-        return self.output_norm(hidden + mlp)
-
-
-class BertBackbone(nn.Module):
-    def __init__(self, cfg: BackboneConfig, dtype, quantized, device=None):
-        super().__init__()
-        self.cfg = cfg
-        h = cfg.hidden_size
-        self.word_embeddings = Embed(cfg.vocab_size, h, device)
-        self.position_embeddings = Embed(cfg.max_position_embeddings, h, device)
-        self.token_type_embeddings = Embed(cfg.type_vocab_size, h, device)
-        self.embeddings_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
-        for i in range(cfg.num_hidden_layers):
-            self.add_module(f"layer_{i}", BertLayer(cfg, dtype, quantized, device))
-
-    def forward(self, input_ids, attention_mask, token_type_ids=None):
-        L = input_ids.shape[1]
-        if token_type_ids is None:
-            token_type_ids = torch.zeros_like(input_ids)
-        pos = torch.arange(L, device=input_ids.device)[None, :]
-        emb = self.word_embeddings(input_ids) + self.position_embeddings(pos)
-        emb = emb + self.token_type_embeddings(token_type_ids)
-        hidden = self.embeddings_norm(emb)
-        bias = _mask_bias(attention_mask.bool()[:, None, None, :])
-        for i in range(self.cfg.num_hidden_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, bias)
-        return hidden
-
-
-# ---------------------------------------------------------------------------
-# ModernBERT backbone (RoPE, GeGLU, pre-norm, local/global alternation)
-# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _inv_freq(theta: float, d: int, pinned: bool) -> torch.Tensor:
+    """theta^(-2i / d) for i < d / 2, float32 on the host, built once per
+    (theta, d); pinned for the copy to a card, which then waits for nothing
+    queued. Nothing writes it after, so every copy reads the same values."""
+    inv_freq = torch.from_numpy((1.0 / (theta ** (np.arange(0, d, 2) / d))).astype(np.float32))
+    return inv_freq.pin_memory() if pinned else inv_freq
 
 
 def _rope_tables(positions: torch.Tensor, d: int, theta: float):
     """cos and sin [*positions.shape, d / 2] float32 of the rotary angles
     position * theta^(-2i / d)."""
-    inv_freq = torch.from_numpy(
-        (1.0 / (theta ** (np.arange(0, d, 2) / d))).astype(np.float32)
-    )
-    if positions.is_cuda:  # from pinned memory the copy waits for nothing queued
-        inv_freq = inv_freq.pin_memory()
+    inv_freq = _inv_freq(float(theta), int(d), positions.is_cuda)
     angles = positions.to(torch.float32)[..., None] * inv_freq.to(positions.device, non_blocking=True)
     return torch.cos(angles), torch.sin(angles)
 
@@ -337,31 +316,35 @@ def packed_positions(lengths) -> np.ndarray:
 
 
 class _Padded:
-    """ModernBERT's attention over a padded [B, L] batch, the JAX chain:
-    positions 0 .. L - 1 on every row, dense scores with a float32 mask
-    bias that drops padded keys, and on local layers the keys outside the
-    window too."""
+    """Attention over a padded [B, L] batch, the JAX chain: positions
+    0 .. L - 1 on every row, dense scores with a float32 mask bias that
+    drops padded keys, and on a windowed layer (ModernBERT's local ones,
+    `half_window` wide) the keys outside the window too."""
 
-    def __init__(self, attention_mask: torch.Tensor, half_window: int):
+    def __init__(self, attention_mask: torch.Tensor, half_window: Optional[int] = None):
         allow = attention_mask.bool()[:, None, None, :]
-        idx = torch.arange(attention_mask.shape[1], device=attention_mask.device)
-        window = (idx[:, None] - idx[None, :]).abs() <= half_window
         self.global_bias = _mask_bias(allow)
-        self.local_bias = _mask_bias(allow & window[None, None, :, :])
         self.half_window = half_window
+        if half_window is not None:
+            idx = torch.arange(attention_mask.shape[1], device=attention_mask.device)
+            window = (idx[:, None] - idx[None, :]).abs() <= half_window
+            self.local_bias = _mask_bias(allow & window[None, None, :, :])
 
     def attend(self, q, k, v, half_window, theta):
+        """q, k, v [B, L, H, D] -> [B, L, H * D] float32; RoPE at `theta`
+        unless it is None (absolute positions)."""
         if half_window not in (None, self.half_window):
             raise ValueError(f"the padded path's window is {self.half_window}, not {half_window}")
-        q, k = _rope(q, k, theta)
+        if theta is not None:
+            q, k = _rope(q, k, theta)
         return _attend(q, k, v, self.global_bias if half_window is None else self.local_bias)
 
 
 class _Packed:
-    """ModernBERT's attention over packed live tokens [N]: RoPE at each
-    token's position in its own document and attention within each
-    document of `cu_seqlens`, both in `ops.attention.varlen_attention` (the
-    kernel on the card). Builds nothing of [L, L]."""
+    """Attention over packed live tokens [N]: RoPE at each token's position
+    in its own document and attention within each document of
+    `cu_seqlens`, both in `ops.attention.varlen_attention` (the kernel on
+    the card). Builds nothing of [L, L]."""
 
     def __init__(self, positions: torch.Tensor, cu_seqlens: torch.Tensor):
         self.positions, self.cu_seqlens = positions, cu_seqlens
@@ -369,14 +352,115 @@ class _Packed:
         self._tiles = None
 
     def attend(self, q, k, v, half_window, theta):
+        """q, k, v [N, H, D] -> [N, H * D] in q's dtype; RoPE at `theta`
+        unless it is None (absolute positions)."""
         n, h, d = q.shape
-        if theta not in self._tables:
+        if theta is not None and theta not in self._tables:
             self._tables[theta] = _rope_tables(self.positions, d, theta)
         if self._tiles is None and q.is_cuda:
             self._tiles = tile_table(self.cu_seqlens, n)
         ctx = varlen_attention(q, k, v, self.cu_seqlens, half_window, 1.0 / math.sqrt(d),
-                               rope=self._tables[theta], tiles=self._tiles)
+                               rope=self._tables.get(theta), tiles=self._tiles)
         return ctx.reshape(n, h * d)
+
+
+# ---------------------------------------------------------------------------
+# BERT family (post-LayerNorm): absolute positions, or rotary on every layer
+# ---------------------------------------------------------------------------
+
+
+class BertSelfAttention(nn.Module):
+    """Every token of a document attends to every other. Absolute BERT
+    projects Q, K and V by three dense layers (HF's and the JAX package's
+    names); the rotary kind by one fused, biased `Wqkv` (Jina's flash
+    XLM-RoBERTa) and rotates q and k at `rotary_emb_base`."""
+
+    def __init__(self, cfg: BackboneConfig, dtype, quantized, device=None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.theta = cfg.rotary_emb_base if cfg.rotary else None
+        if self.theta is None:
+            for name in ("query", "key", "value"):
+                self.add_module(name, _dense(quantized, h, h, dtype, device=device))
+        else:
+            self.Wqkv = _dense(quantized, h, 3 * h, dtype, device=device)
+        self.output = _dense(quantized, h, h, dtype, device=device)
+
+    def forward(self, hidden, layout):
+        """hidden [B, L, h] with a `_Padded` layout or [N, h] with a
+        `_Packed` one."""
+        H = self.cfg.num_attention_heads
+        lead, D = hidden.shape[:-1], self.cfg.hidden_size // H
+        if self.theta is None:
+            q, k, v = (getattr(self, n)(hidden).reshape(*lead, H, D) for n in ("query", "key", "value"))
+        else:
+            q, k, v = self.Wqkv(hidden).reshape(*lead, 3 * H, D).split(H, dim=-2)
+        return self.output(layout.attend(q, k, v, None, self.theta))  # every layer global
+
+
+class BertLayer(nn.Module):
+    def __init__(self, cfg: BackboneConfig, dtype, quantized, device=None):
+        super().__init__()
+        self.act = _act(cfg.hidden_act)
+        h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.attention = BertSelfAttention(cfg, dtype, quantized, device)
+        self.attention_norm = LayerNorm(h, eps, device=device)
+        self.intermediate = _dense(quantized, h, cfg.intermediate_size, dtype, device=device)
+        self.output = _dense(quantized, cfg.intermediate_size, h, dtype, device=device)
+        self.output_norm = LayerNorm(h, eps, device=device)
+
+    def forward(self, hidden, layout):
+        hidden = self.attention_norm(hidden + self.attention(hidden, layout))
+        mlp = self.output(self.act(self.intermediate(hidden)))
+        return self.output_norm(hidden + mlp)
+
+
+class BertBackbone(nn.Module):
+    def __init__(self, cfg: BackboneConfig, dtype, quantized, device=None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.word_embeddings = Embed(cfg.vocab_size, h, device)
+        self.position_embeddings = (
+            None if cfg.rotary else Embed(cfg.max_position_embeddings, h, device)
+        )
+        self.token_type_embeddings = Embed(cfg.type_vocab_size, h, device)
+        self.embeddings_norm = LayerNorm(h, cfg.layer_norm_eps, device=device)
+        for i in range(cfg.num_hidden_layers):
+            self.add_module(f"layer_{i}", BertLayer(cfg, dtype, quantized, device))
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None):
+        """[B, L] ids and mask -> [B, L, h] float32: the JAX chain
+        (`_Padded`), on any device."""
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+        return self._layers(self._embed(input_ids, pos, token_type_ids),
+                            _Padded(attention_mask))
+
+    def forward_packed(self, input_ids, positions, cu_seqlens):
+        """[N] live token ids of documents laid end to end, each token's
+        position in its document [N] and cu_seqlens [B + 1] int32 ->
+        [N, h] float32, token type 0 throughout."""
+        return self._layers(self._embed(input_ids, positions, None),
+                            _Packed(positions, cu_seqlens))
+
+    def _embed(self, input_ids, positions, token_type_ids):
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        emb = self.word_embeddings(input_ids)
+        if self.position_embeddings is not None:
+            emb = emb + self.position_embeddings(positions)
+        return self.embeddings_norm(emb + self.token_type_embeddings(token_type_ids))
+
+    def _layers(self, hidden, layout):
+        for i in range(self.cfg.num_hidden_layers):
+            hidden = getattr(self, f"layer_{i}")(hidden, layout)
+        return hidden
+
+
+# ---------------------------------------------------------------------------
+# ModernBERT backbone (RoPE, GeGLU, pre-norm, local/global alternation)
+# ---------------------------------------------------------------------------
 
 
 class ModernBertAttention(nn.Module):
@@ -384,10 +468,10 @@ class ModernBertAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
-        self.is_global = layer_idx % cfg.global_attn_every_n_layers == 0
-        self.theta = cfg.global_rope_theta if self.is_global else cfg.local_rope_theta
         # Local layers: |i - j| <= window / 2; global layers: None.
-        self.half_window = None if self.is_global else cfg.local_attention // 2
+        self.half_window = cfg.layer_windows()[layer_idx]
+        self.is_global = self.half_window is None
+        self.theta = cfg.global_rope_theta if self.is_global else cfg.local_rope_theta
         self.Wqkv = _dense(quantized, h, 3 * h, dtype, use_bias=False, device=device)
         self.Wo = _dense(quantized, h, h, dtype, use_bias=False, device=device)
 
@@ -497,10 +581,8 @@ class ColbertModel(nn.Module):
         return self._head(self.backbone(input_ids, attention_mask, token_type_ids))
 
     def forward_packed(self, input_ids, positions, cu_seqlens):
-        """ModernBERT only: the packed forward (`ModernBertBackbone.
-        forward_packed`) -> [N, projection_dim] float32, L2-normalized."""
-        if not isinstance(self.backbone, ModernBertBackbone):
-            raise EncodingError("the packed forward is ModernBERT's; BERT runs padded")
+        """The packed forward (the backbone's `forward_packed`) ->
+        [N, projection_dim] float32, L2-normalized."""
         return self._head(self.backbone.forward_packed(input_ids, positions, cu_seqlens))
 
     def _head(self, hidden):
@@ -622,7 +704,7 @@ def _read_dense_head(model_dir: Path) -> Optional[np.ndarray]:
 
 
 def _strip_prefix(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    for prefix in ("bert.", "model.", "encoder_model."):
+    for prefix in ("bert.", "roberta.", "model.", "encoder_model."):
         if any(k.startswith(prefix) for k in sd):
             return {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()}
     return sd
@@ -630,6 +712,14 @@ def _strip_prefix(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 def _kernel(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(w.T)
+
+
+def _hf_dense(sd: Dict[str, np.ndarray], name: str) -> Dict:
+    return {"kernel": _kernel(sd[name + ".weight"]), "bias": sd[name + ".bias"]}
+
+
+def _hf_norm(sd: Dict[str, np.ndarray], name: str) -> Dict:
+    return {"scale": sd[name + ".weight"], "bias": sd[name + ".bias"]}
 
 
 def _map_bert(sd: Dict[str, np.ndarray], cfg: BackboneConfig) -> Dict:
@@ -644,13 +734,7 @@ def _map_bert(sd: Dict[str, np.ndarray], cfg: BackboneConfig) -> Dict:
             "bias": sd["embeddings.LayerNorm.bias"],
         },
     }
-
-    def dense(name):
-        return {"kernel": _kernel(sd[name + ".weight"]), "bias": sd[name + ".bias"]}
-
-    def norm(name):
-        return {"scale": sd[name + ".weight"], "bias": sd[name + ".bias"]}
-
+    dense, norm = functools.partial(_hf_dense, sd), functools.partial(_hf_norm, sd)
     for i in range(cfg.num_hidden_layers):
         b = f"encoder.layer.{i}."
         p[f"layer_{i}"] = {
@@ -664,6 +748,27 @@ def _map_bert(sd: Dict[str, np.ndarray], cfg: BackboneConfig) -> Dict:
             "intermediate": dense(b + "intermediate.dense"),
             "output": dense(b + "output.dense"),
             "output_norm": norm(b + "output.LayerNorm"),
+        }
+    return p
+
+
+def _map_xlmr_rotary(sd: Dict[str, np.ndarray], cfg: BackboneConfig) -> Dict:
+    """Jina's flash XLM-RoBERTa names (under `roberta.`, stripped) -> the
+    rotary BertBackbone tree: no position table, a fused biased `Wqkv`."""
+    dense, norm = functools.partial(_hf_dense, sd), functools.partial(_hf_norm, sd)
+    p: Dict[str, Any] = {
+        "word_embeddings": {"embedding": sd["embeddings.word_embeddings.weight"]},
+        "token_type_embeddings": {"embedding": sd["embeddings.token_type_embeddings.weight"]},
+        "embeddings_norm": norm("emb_ln"),
+    }
+    for i in range(cfg.num_hidden_layers):
+        b = f"encoder.layers.{i}."
+        p[f"layer_{i}"] = {
+            "attention": {"Wqkv": dense(b + "mixer.Wqkv"), "output": dense(b + "mixer.out_proj")},
+            "attention_norm": norm(b + "norm1"),
+            "intermediate": dense(b + "mlp.fc1"),
+            "output": dense(b + "mlp.fc2"),
+            "output_norm": norm(b + "norm2"),
         }
     return p
 
@@ -698,6 +803,14 @@ def load_params(model_dir, cfg: BackboneConfig) -> Dict[str, torch.Tensor]:
     sd = _strip_prefix(_read_state_dict(model_dir))
     if cfg.model_type == "modernbert":
         backbone = _map_modernbert(sd, cfg)
+    elif cfg.rotary:
+        backbone = _map_xlmr_rotary(sd, cfg)
+    elif cfg.model_type in ("roberta", "xlm-roberta"):
+        # BERT's names, but positions counted from past the padding id.
+        raise EncodingError(
+            f"{cfg.model_type} with absolute positions is not supported; "
+            "the rotary XLM-RoBERTa (position_embedding_type: rotary) is"
+        )
     else:
         backbone = _map_bert(sd, cfg)
     head = _read_dense_head(model_dir)

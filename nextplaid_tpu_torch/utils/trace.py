@@ -15,7 +15,8 @@ k-means is recorded whether tracing is on or not, flagged `setup`
 (`build.kmeans`, once per build). Each call of the ColBERT encoder adds
 host spans `encode.prepare`, and for each forward the device span
 `encode.forward` and counters `encode.live_tokens`, `encode.token_slots`,
-`encode.attn_pairs_global` and `encode.attn_pairs_local`
+and for a packed forward `encode.attn_pairs_global`,
+`encode.attn_pairs_local` and `encode.attn_layers_global`
 (`encoder.colbert`), keyed to the batch of the enclosing `batch_scope`:
 a rerank request's query and documents share one.
 While a profiler records, each host span is also a `record_function`

@@ -361,12 +361,16 @@ def test_chip_smoke_attention_check_catches_what_it_holds(fault, monkeypatch):
         return
     out = chip_smoke.attention_check("cpu")
     assert out["least_cos"] >= 1 - 1e-9 and out["local_least_cos"] >= 1 - 1e-9
-    assert out["max_abs_err"] == 0.0
+    assert out["jina_least_cos"] >= 1 - 1e-9
+    assert out["max_abs_err"] == 0.0 and out["jina_max_abs_err"] == 0.0
     assert out["fault_skipped_tile_cos"] < chip_smoke.ENC_MIN_COS_BF16
     assert out["fault_narrow_band_cos"] < chip_smoke.ENC_MIN_COS_BF16
-    # A check, a fault and a timed launch a layer kind (time_ms runs its function once here).
-    assert out["check_launches"] == 6 and out["tokens"] == 958 and out["documents"] == 5
+    assert out["fault_jina_skipped_tile_cos"] < chip_smoke.ENC_MIN_COS_BF16
+    # A check, a fault and a timed launch a layer kind (time_ms runs its function once here):
+    # ModernBERT's global and local layers, jina-colbert-v2's global one.
+    assert out["check_launches"] == 9 and out["tokens"] == 958 and out["documents"] == 5
     assert out["bound_ms"] >= out["local_bound_ms"] > 0 and out["local_bound_by"] == "bytes"
+    assert out["jina_bound_ms"] == pytest.approx(out["bound_ms"] * 16 / 12)
 
 
 def test_rerank_scores_batch_equals_one_document_at_a_time():
